@@ -1,0 +1,16 @@
+"""repro_torch — the PyTorch / CUDA port of `repro`.
+
+The paper's private gossip learner (Algorithm 1 over a ring of data
+centres: Laplace noise, per-node L2 clip, OMD with the L1 prox) in PyTorch,
+with the round body on hand-written Hopper kernels (``backend="cuda"``).
+It mirrors `repro`'s module layout and imports neither JAX nor `repro`.
+Every entry point runs on CUDA unless the caller passes ``device="cpu"``.
+
+    from repro_torch import ExecConfig, RunSpec, run
+    res = run(RunSpec(nodes=64, dim=10_000, horizon=1562, eps=1.0,
+                      calibration="coordinate", alpha0=1.0, lam=1e-3,
+                      backend="cuda"), exec=ExecConfig(chunk_rounds=256))
+"""
+from repro_torch.api import ExecConfig, RunResult, RunSpec, run
+
+__all__ = ["ExecConfig", "RunResult", "RunSpec", "run"]

@@ -1,0 +1,39 @@
+"""Proximal operators (paper steps 6-7 of Algorithm 1), on torch tensors.
+
+Counterpart of `repro.core.prox`. Step 7's Lasso prox has the closed form
+w = sign(p) * max(|p| - lambda, 0); with phi_t = 1/2 ||.||^2 the mirror map
+is the identity, so primal recovery is the soft threshold of theta.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["soft_threshold", "l2_mirror_map", "sparsity", "zero_fraction"]
+
+
+def soft_threshold(p: torch.Tensor, lam) -> torch.Tensor:
+    """Closed-form Lasso prox: sign(p) * relu(|p| - lam)."""
+    return torch.sign(p) * torch.clamp_min(p.abs() - float(lam), 0.0)
+
+
+def l2_mirror_map(theta: torch.Tensor) -> torch.Tensor:
+    """grad phi*(theta) for phi = 1/2||.||_2^2 : identity (Thm 2 setting)."""
+    return theta
+
+
+def zero_fraction(zeros: torch.Tensor, total: int) -> torch.Tensor:
+    """f32 ``zeros / total`` computed as the reference computes it.
+
+    The count is exact (an integer tensor). XLA turns the reference's
+    division by the constant ``total`` into a multiplication by its f32
+    reciprocal, so this multiplies by ``f32(1) / f32(total)`` too — on
+    every device, and sparsity is held bit-exact.
+    """
+    inv = float(np.float32(1.0) / np.float32(total))
+    return zeros.to(torch.float32) * inv
+
+
+def sparsity(w: torch.Tensor, atol: float = 0.0) -> torch.Tensor:
+    """Fraction of exactly-zero (or |.|<=atol) coordinates, as f32."""
+    return zero_fraction((w.abs() <= atol).sum(), w.numel())

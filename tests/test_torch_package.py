@@ -1,0 +1,142 @@
+"""The port as a package: its import boundary, its device rule, and the
+stages it refuses until they are ported."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch  # noqa: E402
+from repro_torch import ExecConfig, RunSpec, run  # noqa: E402
+from repro_torch.api import BACKENDS, MIXERS  # noqa: E402
+from repro_torch.api.registry import UnknownEntryError  # noqa: E402
+from repro_torch.kernels import round_fused as rf  # noqa: E402
+
+PKG = pathlib.Path(repro_torch.__file__).parent
+SPEC = dict(nodes=4, dim=30, horizon=4, eps=1.0, alpha0=0.5, lam=0.01)
+CFG = ExecConfig(chunk_rounds=2, warmup=False, compute_regret=False)
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(PKG.parent).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts), path
+
+
+def test_importing_the_port_loads_neither_jax_nor_repro():
+    names = [name for name, _ in _modules()]
+    code = (
+        "import sys, importlib\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={"PYTHONPATH": str(PKG.parent),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+@pytest.mark.parametrize("name,path", list(_modules()),
+                         ids=[n for n, _ in _modules()])
+def test_no_source_file_imports_jax_or_repro(name, path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods = [node.module or ""]
+        else:
+            continue
+        for mod in mods:
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), \
+                f"{path}: imports {mod}"
+
+
+def test_entry_points_default_to_cuda_and_refuse_without_it():
+    assert not torch.cuda.is_available()      # this suite runs on the CPU
+    spec = RunSpec(**SPEC)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run(spec, exec=CFG)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        spec.build_simulator().init(0)
+    res = run(spec, exec=CFG, device="cpu")
+    assert res.device == "cpu" and res.final_w.shape == (4, 30)
+
+
+def test_kernel_wrapper_takes_the_plain_version_for_cpu_tensors():
+    rf.reset_launches()
+    rng = np.random.default_rng(0)
+    mixed, x, theta = (torch.from_numpy(rng.standard_normal((3, 7)).astype(
+        np.float32)) for _ in range(3))
+    coeff, alive = torch.ones(3), torch.ones(3)
+    out = rf.dual_step(mixed, x, theta, coeff, alive, 0.5)
+    assert torch.equal(out, rf.dual_step_plain(mixed, x, theta, coeff, alive,
+                                               0.5))
+    assert rf.dual_step.launches == 0
+
+
+def test_registries_name_what_the_slice_carries():
+    assert BACKENDS.names() == ("cuda", "reference")
+    assert MIXERS.names() == ("ring",)
+    assert all(BACKENDS.describe().values())
+    with pytest.raises(UnknownEntryError, match="cuda"):
+        BACKENDS.build("pallas")
+    with pytest.raises(TypeError, match="mode"):
+        BACKENDS.build("cuda", {"moed": "auto"})
+    with pytest.raises(ValueError, match="mode"):
+        BACKENDS.build("cuda", {"mode": "fast"})
+
+
+@pytest.mark.parametrize("field,value", [
+    ("faults", "links"), ("delay_dist", "uniform"), ("mixer", "complete"),
+    ("mechanism", "gaussian"), ("local_rule", "rda"), ("clipper", "value"),
+    ("stream", "drift"), ("prox_kind", "group"),
+])
+def test_unported_stages_raise_naming_the_roadmap(field, value):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        spec = RunSpec(**SPEC, **{field: value})
+        run(spec, exec=CFG, device="cpu")
+
+
+def test_dist_engine_is_not_ported():
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        run(RunSpec(**SPEC), engine="dist", exec=CFG, device="cpu")
+
+
+def test_cuda_backend_refusals_match_the_reference():
+    """The fused backend keeps the reference's refusals: a custom loss;
+    mode='fused' past max_fused_nodes."""
+    with pytest.raises(ValueError, match="reference"):
+        run(RunSpec(**SPEC, backend="cuda",
+                    loss_and_grad=lambda w, x, y: None), exec=CFG,
+            device="cpu")
+    with pytest.raises(ValueError, match="hybrid"):
+        run(RunSpec(**SPEC, backend="cuda",
+                    backend_options={"mode": "fused", "max_fused_nodes": 2}),
+            exec=CFG, device="cpu")
+    # auto falls back to hybrid past the cap, and agrees with fused
+    auto = run(RunSpec(**SPEC, backend="cuda",
+                       backend_options={"max_fused_nodes": 2}), exec=CFG,
+               device="cpu")
+    fused = run(RunSpec(**SPEC, backend="cuda"), exec=CFG, device="cpu")
+    assert np.abs(auto.final_w - fused.final_w).max() <= 5e-6
+    np.testing.assert_array_equal(auto.sparsity, fused.sparsity)
+
+
+@pytest.mark.parametrize("name", [n for n, _ in _modules()])
+def test_module_docstring_examples_run(name):
+    import doctest
+    import importlib
+    module = importlib.import_module(name)
+    result = doctest.testmod(module, optionflags=doctest.ELLIPSIS)
+    assert result.failed == 0, f"{name}: {result.failed} doctest failures"
