@@ -10,12 +10,19 @@ toolkit:
 Phases (any failure raises, and the script exits non-zero):
 
 1. card      — require CUDA; print the card's name and power limit; TF32 off.
-2. build     — compile ``src/repro_torch/csrc/*.cu`` with nvcc (sm_90a).
+2. build     — compile ``src/repro_torch/csrc/*.cu`` with nvcc (sm_90a),
+               one nvcc per source, all started together.
 3. kernels   — hold ``round_stats``, ``round_update`` and ``dual_step``
                against their plain PyTorch versions at the main path's shape
                (m=64, n=10,000), the fused mode's largest (m=1024,
-               n=65,536) and a ragged one (m=7, n=1,000); time each at the
-               main path's shape with CUDA events beside its bound.
+               n=65,536) and a ragged one (m=7, n=1,000); hold
+               ``pdomd_update`` at (rows, 128) for rows = 5,000 (the paper's
+               node stack), 262,144 and 8, and ``hinge_grad`` at
+               (B, n) = (64, 10,112) (one round of the ring, n zero-padded
+               to a multiple of 128), (99,968, 10,112) (the whole paper
+               stream), (100, 384) (ragged) and (256, 65,536) (too wide to
+               stage in shared memory); time each at its first shape by the
+               profiler's device time, beside its bound.
 4. main path — ``repro_torch.run`` at the paper's scale (m=64, n=10,000,
                T=1,562 rounds = 100,000 samples, social_sparse, ring,
                Laplace eps=1 coordinate, L2 clip 1, alpha0=1, lam=1e-3),
@@ -26,6 +33,16 @@ Phases (any failure raises, and the script exits non-zero):
                against the fused backend, same seed and generator.
 6. hybrid    — 64 rounds with ``mode="hybrid"`` (torch-op mix, then
                ``dual_step``) against the fused run.
+7. dist      — the main path's run on the distributed engine
+               (``run(..., engine="dist")``, `GossipDP`): the fused kernels
+               must launch once per round, and every field of its RunResult
+               must equal the simulator's (phase 4) exactly.
+8. ops       — one ring round at paper width through the pytree kernel ops:
+               from a dist state at round 64, each node's hinge subgradient
+               by ``ops.hinge_grad``, clipped, then ``ops.pdomd_update`` on
+               the (rows, 128) tiles of theta~, its two ring neighbours and
+               the gradient; held against the engine's own next state and
+               primal (``GossipDP.update``, ``GossipDP.primal``).
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line (time,
 bound, plain-version time and launches of every kernel), and last
@@ -34,6 +51,7 @@ repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import json
 import math
@@ -53,11 +71,22 @@ FLOAT_TOL = 5e-6            # the port's float contract between backends
 MAIN_M, MAIN_N = 64, 10_000
 KERNEL_SHAPES = ((MAIN_M, MAIN_N), (1024, 65_536), (7, 1_000))
 SOURCE = "src/repro_torch/csrc/round_fused.cu"
+ROUND_KERNELS = ("round_stats", "round_update", "dual_step")
 REPLACES = {
     "round_stats": "src/repro/kernels/round_fused.py:130",
     "round_update": "src/repro/kernels/round_fused.py:194",
     "dual_step": "src/repro/kernels/round_fused.py:249",
+    "pdomd_update": "src/repro/kernels/pdomd_update.py:49",
+    "hinge_grad": "src/repro/kernels/hinge_grad.py:57",
 }
+SEED_SOURCES = {"pdomd_update": "src/repro_torch/csrc/pdomd_update.cu",
+                "hinge_grad": "src/repro_torch/csrc/hinge_grad.cu"}
+PAPER_T = 100_000 // MAIN_M                  # 1,562 rounds
+N_PAD = -(-MAIN_N // 128) * 128              # 10,112: n to a multiple of 128
+PDOMD_ROWS = (MAIN_M * MAIN_N // 128, 262_144, 8)
+HINGE_SHAPES = ((MAIN_M, N_PAD), (PAPER_T * MAIN_M, N_PAD), (100, 384),
+                (256, 65_536))
+L2_BYTES = 50e6
 
 
 def log(msg: str) -> None:
@@ -104,8 +133,9 @@ def build_phase() -> float:
         ptxas = [ln for ln in lib.with_suffix(".log").read_text().splitlines()
                  if "registers" in ln or "spill" in ln]
         log(f"built {lib.name}: " + " | ".join(ln.strip() for ln in ptxas))
-    from repro_torch.kernels import round_fused
-    round_fused.library()
+    from repro_torch.kernels import hinge_grad, pdomd_update, round_fused
+    for module in (round_fused, pdomd_update, hinge_grad):
+        module.library()
     log(f"build: {secs:.1f} s")
     return secs
 
@@ -147,7 +177,8 @@ def _calls(rf, d, use_recv=0, noise_self=True):
 
 # outputs that are sums over a node's row or a column (round_stats' four
 # float outputs; round_update's next, through A @ r) — see _compare
-REDUCED = {"round_stats": (0, 1, 3, 4), "round_update": (0,), "dual_step": ()}
+REDUCED = {"round_stats": (0, 1, 3, 4), "round_update": (0,), "dual_step": (),
+           "pdomd_update": (), "hinge_grad": (0, 1, 2)}
 
 
 def _compare(name, got, want, where) -> float:
@@ -239,7 +270,42 @@ def _work(name: str, m: int, n: int) -> tuple[int, int]:
     if name == "round_update":     # A, theta, delta, x, coeff, diag, alive in;
         return (4 * (m * m + 3 * mn + 3 * m + 2 * mn),   # next, tilde out
                 2 * m * m * n + 8 * mn)
+    if name == "pdomd_update":     # four (rows, 128) in; w, theta_new out
+        return 4 * 6 * mn, 10 * mn
+    if name == "hinge_grad":       # x, y, w in; loss, margin, g out
+        return 4 * (mn + 3 * m + 2 * n), 4 * mn
     return 4 * (3 * mn + 2 * m + mn), 3 * mn   # dual_step
+
+
+def _rotate(fns):
+    """One call per invocation, cycling over ``fns`` (input sets)."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
+def _measure(name: str, kern, plain, m: int, n: int, err: float,
+             source: str, card: str) -> dict:
+    """Time a kernel (lists of calls over rotating input sets) and its plain
+    version at shape (m, n); the kernels line's entry for it."""
+    ms = _device_ms(_rotate(kern))
+    plain_ms = _device_ms(_rotate(plain))
+    call_ms = _call_ms(_rotate(kern))
+    nbytes, flops = _work(name, m, n)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    entry = dict(
+        name=name, route="cuda", source=source, replaces=REPLACES[name],
+        launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None, call_ms=call_ms)
+    log(f"kernel {name}: {ms * 1e3:.2f} us device time (median) at "
+        f"{m}x{n} | {nbytes / 1e6:.2f} MB, bound {bound_ms * 1e3:.2f} us at "
+        f"3.35 TB/s ({entry['bound_by']}) | plain version "
+        f"{plain_ms * 1e3:.2f} us device time | {call_ms * 1e3:.2f} us per "
+        f"back-to-back wrapper call (host included) | max abs err "
+        f"{err:.3g} | {card}")
+    return entry
 
 
 def kernel_phase(card: str):
@@ -248,7 +314,7 @@ def kernel_phase(card: str):
     import torch
     from repro_torch.kernels import round_fused as rf
     dev = torch.device("cuda")
-    errs = {k: 0.0 for k in REPLACES}
+    errs = {k: 0.0 for k in ROUND_KERNELS}
     for m, n in KERNEL_SHAPES:
         d = _inputs(m, n, seed=m * 7919 + n, dev=dev)
         for use_recv in (0, 1):
@@ -270,33 +336,129 @@ def kernel_phase(card: str):
     # exceed the 50 MB L2, so every launch reads its inputs from HBM
     sets = [_inputs(MAIN_M, MAIN_N, seed=s, dev=dev) for s in range(10)]
     results = {}
-    for name in REPLACES:
-        kern = [_calls(rf, d)[name][0] for d in sets]
-        plain = [_calls(rf, d)[name][1] for d in sets]
+    for name in ROUND_KERNELS:
+        results[name] = _measure(
+            name, [_calls(rf, d)[name][0] for d in sets],
+            [_calls(rf, d)[name][1] for d in sets], MAIN_M, MAIN_N,
+            errs[name], SOURCE, card)
+    del sets
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return results
 
-        def rotate(fns):
-            it = itertools.cycle(fns)
-            return lambda: next(it)()
 
-        ms = _device_ms(rotate(kern))
-        plain_ms = _device_ms(rotate(plain))
-        call_ms = _call_ms(rotate(kern))
-        nbytes, flops = _work(name, MAIN_M, MAIN_N)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-        bound_ms = max(t_bytes, t_ops) * 1e3
-        results[name] = dict(
-            name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-            launches=None, max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms,
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None, call_ms=call_ms)
-        log(f"kernel {name}: {ms * 1e3:.2f} us device time (median) at "
-            f"m={MAIN_M} n={MAIN_N} | {nbytes / 1e6:.2f} MB, bound "
-            f"{bound_ms * 1e3:.2f} us at 3.35 TB/s "
-            f"({results[name]['bound_by']}) | plain version "
-            f"{plain_ms * 1e3:.2f} us device time | {call_ms * 1e3:.2f} us "
-            f"per back-to-back wrapper call (host included) | max abs err "
-            f"{errs[name]:.3g} | {card}")
+def _pdomd_inputs(rows: int, seed: int, dev):
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return [torch.randn((rows, 128), generator=g, device=dev)
+            for _ in range(4)]
+
+
+def _hinge_inputs(B: int, n: int, seed: int, dev):
+    """x (B, n) with features ~ N(0, 1/n) (the stream's feature scale),
+    zero past MAIN_N when n is the padded paper width N_PAD; labels +-1;
+    w ~ N(0, 1), so the margins straddle 1."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = torch.randn((B, n), generator=g, device=dev) / math.sqrt(n)
+    if n == N_PAD:
+        x[:, MAIN_N:] = 0.0
+    y = torch.where(torch.rand(B, generator=g, device=dev) < 0.5, -1.0, 1.0)
+    return x, y, torch.randn(n, generator=g, device=dev)
+
+
+def _paper_stream_batch(dev):
+    """The whole paper stream as one (99,968, 10,112) batch — the regret
+    comparator's full batch, its features zero-padded to a multiple of 128
+    — labels from the stream, and a random w of the padded width."""
+    import torch
+    stream = paper_spec().resolve_stream(device=dev)
+    x = torch.zeros((PAPER_T * MAIN_M, N_PAD), device=dev)
+    y = torch.empty(PAPER_T * MAIN_M, device=dev)
+    for a in range(0, PAPER_T, 256):
+        b = min(a + 256, PAPER_T)
+        xs, ys = stream.chunk(a, b)
+        x[a * MAIN_M:b * MAIN_M, :MAIN_N] = xs.reshape(-1, MAIN_N)
+        y[a * MAIN_M:b * MAIN_M] = ys.reshape(-1)
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    w = torch.randn(N_PAD, generator=g, device=dev)
+    w[MAIN_N:] = 0.0
+    return x, y, w
+
+
+def seed_kernel_phase(card: str) -> dict:
+    """Hold ``pdomd_update`` and ``hinge_grad`` against their plain versions
+    at every shape of PDOMD_ROWS and HINGE_SHAPES; time each at its first
+    shape. Zero-padded feature columns must get a gradient of exactly 0."""
+    import torch
+    from repro_torch.kernels import hinge_grad as hg
+    from repro_torch.kernels import pdomd_update as pu
+    dev = torch.device("cuda")
+    err = {"pdomd_update": 0.0, "hinge_grad": 0.0}
+    for rows in PDOMD_ROWS:
+        args = _pdomd_inputs(rows, seed=rows, dev=dev)
+        for alpha, lam in ((0.05, 0.02), (0.0, 0.8)):
+            err["pdomd_update"] = max(err["pdomd_update"], _compare(
+                "pdomd_update", pu.pdomd_update(*args, alpha, lam),
+                pu.pdomd_update_plain(*args, alpha, lam),
+                f"rows={rows} alpha={alpha} lam={lam}"))
+        del args
+        log(f"pdomd_update agrees with its plain version at ({rows}, 128)")
+    for B, n in HINGE_SHAPES:
+        if B == PAPER_T * MAIN_M:
+            x, y, w = _paper_stream_batch(dev)
+        else:
+            x, y, w = _hinge_inputs(B, n, seed=B + n, dev=dev)
+        got = hg.hinge_grad(x, y, w)
+        err["hinge_grad"] = max(err["hinge_grad"], _compare(
+            "hinge_grad", got, hg.hinge_grad_plain(x, y, w), f"B={B} n={n}"))
+        if n == N_PAD:
+            require(not bool(got[1][MAIN_N:].any()),
+                    f"hinge_grad at B={B}: zero-padded columns got a "
+                    "non-zero gradient")
+        active = float((got[2] < 1).float().mean())
+        if B == PAPER_T * MAIN_M:       # the one-read design's real size
+            full = dict(
+                full_batch_ms=_device_ms(lambda: hg.hinge_grad(x, y, w),
+                                         reps=3, repeats=3),
+                full_batch_plain_ms=_device_ms(
+                    lambda: hg.hinge_grad_plain(x, y, w), reps=3,
+                    repeats=3),
+                full_batch_bound_ms=_work("hinge_grad", B, n)[0]
+                / HBM_BYTES_PER_S * 1e3)
+            log(f"hinge_grad over the whole paper stream ({B}x{n}): "
+                f"{full['full_batch_ms']:.3f} ms device time, bound "
+                f"{full['full_batch_bound_ms']:.3f} ms, plain version "
+                f"{full['full_batch_plain_ms']:.3f} ms | {card}")
+        del x, y, w, got
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f"hinge_grad agrees with its plain version at B={B}, n={n} "
+            f"(active share {active:.3f})")
+
+    results = {}
+    rows = PDOMD_ROWS[0]
+    nbytes = _work("pdomd_update", rows, 128)[0]
+    sets = [_pdomd_inputs(rows, seed=s, dev=dev)
+            for s in range(max(10, math.ceil(3 * L2_BYTES / nbytes)))]
+    results["pdomd_update"] = _measure(
+        "pdomd_update",
+        [functools.partial(pu.pdomd_update, *a, 0.05, 0.02) for a in sets],
+        [functools.partial(pu.pdomd_update_plain, *a, 0.05, 0.02)
+         for a in sets], rows, 128, err["pdomd_update"],
+        SEED_SOURCES["pdomd_update"], card)
+    B, n = HINGE_SHAPES[0]
+    nbytes = _work("hinge_grad", B, n)[0]
+    sets = [_hinge_inputs(B, n, seed=s, dev=dev)
+            for s in range(max(10, math.ceil(3 * L2_BYTES / nbytes)))]
+    results["hinge_grad"] = _measure(
+        "hinge_grad", [functools.partial(hg.hinge_grad, *a) for a in sets],
+        [functools.partial(hg.hinge_grad_plain, *a) for a in sets], B, n,
+        err["hinge_grad"], SEED_SOURCES["hinge_grad"], card)
+    results["hinge_grad"].update(full)
     del sets
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -313,7 +475,7 @@ def paper_spec(**kw):
     """The paper's §V run (configs/social_linear.py at
     benchmarks/common.py::Scale.paper) on the fused backend."""
     from repro_torch import RunSpec
-    base = dict(nodes=MAIN_M, dim=MAIN_N, horizon=100_000 // MAIN_M,
+    base = dict(nodes=MAIN_M, dim=MAIN_N, horizon=PAPER_T,
                 stream="social_sparse", mixer="ring", mechanism="laplace",
                 eps=1.0, calibration="coordinate", clip_norm=1.0,
                 alpha0=1.0, schedule="sqrt_t", lam=1e-3, seed=0,
@@ -353,7 +515,7 @@ def main_path(card: str):
     t0 = time.perf_counter()
     res = run(spec, exec=cfg, device=DEVICE)
     wall = time.perf_counter() - t0
-    launches = {k: getattr(rf, k).launches for k in REPLACES}
+    launches = {k: getattr(rf, k).launches for k in ROUND_KERNELS}
     log(f"main path: {T} rounds, run() {wall:.2f} s with regret; round "
         f"loop {res.wall_clock:.3f} s = {res.rounds_per_sec:.1f} rounds/s; "
         f"launches {launches} | {card}")
@@ -439,18 +601,142 @@ def hybrid_phase(fused, card: str) -> int:
     return launched
 
 
+def dist_phase(sim, card: str) -> dict:
+    """The main path's run on the distributed engine: the fused kernels
+    launch once per round, and its RunResult equals the simulator's field
+    by field, exactly (wall-clock fields and the engine's name aside)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import ExecConfig, run
+    from repro_torch.kernels import round_fused as rf
+    spec = paper_spec()
+    T = spec.horizon
+    cfg = ExecConfig(chunk_rounds=256, compute_regret=True, warmup=False)
+    rf.reset_launches()
+    dist = run(spec, engine="dist", exec=cfg, device=DEVICE)
+    launches = {k: getattr(rf, k).launches for k in ROUND_KERNELS}
+    log(f"dist path: {T} rounds, round loop {dist.wall_clock:.3f} s = "
+        f"{dist.rounds_per_sec:.1f} rounds/s (sim, phase 4: "
+        f"{sim.rounds_per_sec:.1f} rounds/s); launches {launches} | {card}")
+    require(launches == {"round_stats": T, "round_update": T,
+                         "dual_step": 0},
+            f"dist run launched {launches}, expected {T} fused launches each")
+    skip = {"engine", "wall_clock", "rounds_per_sec", "final_state"}
+    for f in dataclasses.fields(dist):
+        if f.name in skip:
+            continue
+        a, b = getattr(dist, f.name), getattr(sim, f.name)
+        same = (np.array_equal(a, b) if isinstance(a, np.ndarray)
+                else a == b)
+        require(bool(same), f"dist vs sim: {f.name} differs")
+    st, sst = dist.final_state, sim.final_state
+    require(st.t == sst.t and torch.equal(st.theta["w"], sst.theta)
+            and torch.equal(st.generator.get_state(),
+                            sst.generator.get_state()),
+            "dist vs sim: final engine state differs")
+    log(f"dist vs sim: every RunResult field and the final state equal, "
+        f"bit for bit, over {T} rounds")
+    # the two engines' speed in turns (sim, dist, dist, sim), 256 rounds
+    # each: one sample apiece above is within the host's noise
+    short = spec.replace(horizon=256)
+    cfg = cfg.replace(chunk_rounds=256, compute_regret=False)
+    rates = {"sim": [], "dist": []}
+    for engine in ("sim", "dist", "dist", "sim"):
+        rates[engine].append(run(short, engine=engine, exec=cfg,
+                                 device=DEVICE).rounds_per_sec)
+    log(f"rounds/s over 256 rounds in turns sim, dist, dist, sim: "
+        f"sim {rates['sim']}, dist {rates['dist']} | {card}")
+    return launches
+
+
+def ops_phase(card: str) -> dict:
+    """One ring round at paper width through the pytree kernel ops, held
+    against the distributed engine's own round (see module docstring).
+    Returns the ops' launch counts in that round."""
+    import torch
+    from repro_torch import ExecConfig, ops, run
+    from repro_torch.core.algorithm1 import hinge_loss_and_grad
+    from repro_torch.kernels import hinge_grad as hg
+    from repro_torch.kernels import pdomd_update as pu
+    spec = paper_spec()
+    t = AGREE_ROUNDS
+    state = run(spec, engine="dist", horizon=t,
+                exec=ExecConfig(chunk_rounds=t, compute_regret=False,
+                                warmup=False), device=DEVICE).final_state
+    require(state.t == t, f"dist state at round {state.t}, expected {t}")
+    gdp = spec.build_distributed()
+    xs, ys = spec.resolve_stream(device=DEVICE).chunk(t, t + 1)
+    x, y = xs[0], ys[0]
+    ctx = gdp.omd.step_context(t + 1)
+    lam_next = gdp.omd.step_context(t + 2).lam_t
+    # the round's theta~: the noise the engine will draw, from a copy of
+    # its generator
+    gen = torch.Generator(device=DEVICE)
+    gen.set_state(state.generator.get_state())
+    theta = state.theta["w"]
+    tilde = theta + gdp.mechanism.sample(
+        gen, tuple(theta.shape), gdp.mechanism.scale(ctx.alpha_t, MAIN_N))
+    w = gdp.primal(state)["w"]
+    loss_e, grad_e = hinge_loss_and_grad(w, x, y)
+    nxt, _ = gdp.update(state, {"w": grad_e})      # mix, then dual step
+
+    hg.reset_launches()
+    pu.reset_launches()
+    pad = lambda a: torch.nn.functional.pad(a, (0, N_PAD - MAIN_N))  # noqa
+    xp, wp = pad(x), pad(w)
+    outs = [ops.hinge_grad(xp[i:i + 1], y[i:i + 1], wp[i])
+            for i in range(MAIN_M)]           # each node's batch of one
+    loss = torch.cat([o[0] for o in outs])
+    grad = torch.stack([o[1] for o in outs])
+    require(not bool(grad[:, MAIN_N:].any()),
+            "ops: zero-padded columns got a non-zero gradient")
+    g, _ = gdp.clipper.clip({"w": grad[:, :MAIN_N].contiguous()})
+    like = {"w": tilde}
+    w_t, th_t = ops.pdomd_update(
+        ops.tree_to_tiles(like),
+        ops.tree_to_tiles({"w": torch.roll(tilde, 1, dims=0)}),
+        ops.tree_to_tiles({"w": torch.roll(tilde, -1, dims=0)}),
+        ops.tree_to_tiles(g), ctx.alpha_t, lam_next)
+    theta_new = ops.tiles_to_tree(th_t, like)["w"]
+    w_new = ops.tiles_to_tree(w_t, like)["w"]
+    launches = {"hinge_grad": hg.hinge_grad.launches,
+                "pdomd_update": pu.pdomd_update.launches}
+    d = {"loss": float((loss - loss_e).abs().max()),
+         "grad": float((grad[:, :MAIN_N] - grad_e).abs().max()),
+         "theta_next": float((theta_new - nxt.theta["w"]).abs().max()),
+         "w_next": float((w_new - gdp.primal(nxt)["w"]).abs().max())}
+    log(f"ops path: one ring round at m={MAIN_M}, n={MAIN_N} "
+        f"({tuple(th_t.shape)} tiles), round {t + 1}; launches {launches}; "
+        f"max abs differences from the engine's round: {d} | {card}")
+    require(launches == {"hinge_grad": MAIN_M, "pdomd_update": 1},
+            f"ops path launched {launches}")
+    for k, v in d.items():
+        require(v <= FLOAT_TOL, f"ops path: {k} off by {v}")
+    return launches
+
+
+PATHS = {"round_stats": "main", "round_update": "main", "dual_step": "hybrid",
+         "pdomd_update": "ops", "hinge_grad": "ops"}
+
+
 def main() -> int:
     card, smi = card_check()
     import torch
     build_phase()
     kernels = kernel_phase(card)
+    kernels.update(seed_kernel_phase(card))
     main_res, launches = main_path(card)
     idle_share(card)
     fused = agreement_phase(main_res, card)
     launches["dual_step"] = hybrid_phase(fused, card)
+    dist_launches = dist_phase(main_res, card)
+    launches.update(ops_phase(card))
     for name, entry in kernels.items():
         entry["launches"] = launches[name]
-        entry["path"] = "hybrid" if name == "dual_step" else "main"
+        entry["path"] = PATHS[name]
+        if name in dist_launches and dist_launches[name]:
+            entry["dist_launches"] = dist_launches[name]
     log(smi)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -7,10 +7,20 @@ It mirrors `repro`'s module layout and imports neither JAX nor `repro`.
 Every entry point runs on CUDA unless the caller passes ``device="cpu"``.
 
     from repro_torch import ExecConfig, RunSpec, run
-    res = run(RunSpec(nodes=64, dim=10_000, horizon=1562, eps=1.0,
-                      calibration="coordinate", alpha0=1.0, lam=1e-3,
-                      backend="cuda"), exec=ExecConfig(chunk_rounds=256))
-"""
-from repro_torch.api import ExecConfig, RunResult, RunSpec, run
+    spec = RunSpec(nodes=64, dim=10_000, horizon=1562, eps=1.0,
+                   calibration="coordinate", alpha0=1.0, lam=1e-3,
+                   backend="cuda")
+    res = run(spec, exec=ExecConfig(chunk_rounds=256))     # simulator
+    dist = run(spec, engine="dist")                        # GossipDP, same bits
 
-__all__ = ["ExecConfig", "RunResult", "RunSpec", "run"]
+The distributed engine also runs as a raw strategy on any node-stacked
+pytree (``spec.build_distributed()``: ``GossipDP.init``/``update``), and
+`ops` carries the seed kernels ``pdomd_update`` and ``hinge_grad`` with the
+(rows, 128) tile plumbing of a parameter pytree.
+"""
+from repro_torch.api import (ExecConfig, GossipDP, GossipState, RunResult,
+                             RunSpec, gossip_mix_tree, ops, per_node_clip,
+                             run)
+
+__all__ = ["ExecConfig", "RunResult", "RunSpec", "run", "GossipDP",
+           "GossipState", "gossip_mix_tree", "per_node_clip", "ops"]

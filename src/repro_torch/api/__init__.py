@@ -2,9 +2,10 @@
 
 Counterpart of `repro.api`: Algorithm 1 (clip -> Laplace-noise ->
 gossip-mix -> local sparse update -> L1 prox) decomposed into registry-backed
-stages — Mixer, Mechanism, LocalRule, Clipper, Stream — and a BACKENDS
-registry that says how the round body executes ("reference" torch ops or
-the fused "cuda" kernels).
+stages — Mixer, Mechanism, LocalRule, Clipper, Stream — shared by both
+engines (the dense simulator and the distributed `GossipDP`), and a
+BACKENDS registry that says how the round body executes ("reference" torch
+ops or the fused "cuda" kernels).
 
 >>> from repro_torch.api import MIXERS, MECHANISMS, LOCAL_RULES, CLIPPERS
 >>> MIXERS.names(), MECHANISMS.names(), LOCAL_RULES.names(), CLIPPERS.names()
@@ -25,6 +26,9 @@ from repro_torch.api.exec_config import ExecConfig
 from repro_torch.api.runner import RunResult, make_chunk_program, run
 # importing repro_torch.api.backends registers the BACKENDS entries
 from repro_torch.api.backends import CudaBackend, ReferenceBackend
+from repro_torch.core.gossip import (GossipDP, GossipState, gossip_mix_tree,
+                                     per_node_clip)
+from repro_torch.kernels import ops
 
 __all__ = [
     "Registry", "UnknownEntryError", "MIXERS", "MECHANISMS", "LOCAL_RULES",
@@ -37,4 +41,5 @@ __all__ = [
     "Stream", "SocialStream",
     "RunSpec", "ExecConfig", "RunResult", "run", "make_chunk_program",
     "ReferenceBackend", "CudaBackend",
+    "GossipDP", "GossipState", "gossip_mix_tree", "per_node_clip", "ops",
 ]

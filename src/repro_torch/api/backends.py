@@ -2,8 +2,8 @@
 
 Counterpart of `repro.api.backends`. `RunSpec.backend` selects the backend
 by name and ``backend_options`` configure it; `runner.make_chunk_program`
-dispatches through it, so streams, delay rings and checkpoints work with
-either backend unchanged:
+dispatches through it, so streams, delay rings, checkpoints and both
+engines ("sim" and "dist") work with either backend unchanged:
 
   "reference" — `core.algorithm1.Algorithm1.round` in torch ops: the
                 correctness oracle.
@@ -14,8 +14,9 @@ either backend unchanged:
                 noise-add + dense mix + dual step + crash freeze in
                 ``round_update``.
 
-Both backends share the state (`SimState`) and draw the noise the same way
-from the state's generator, outside the kernels, so checkpoints interchange
+Both backends share each engine's state (`SimState`, or `GossipState` with
+``theta={"w": ...}``) and draw the noise the same way from the state's
+generator, outside the kernels, so checkpoints interchange
 and `correct`, `sparsity` and the eps ledger agree exactly at the tested
 sizes; the iterates agree within the float32 contract (kernel reduction
 order differs from torch's).
@@ -42,30 +43,9 @@ import torch
 
 from repro_torch.api.mixers import ring_read, ring_write
 from repro_torch.api.registry import BACKENDS
+from repro_torch.api.runner import chunk_loop, reference_chunk_program
 
 __all__ = ["BACKENDS", "ReferenceBackend", "CudaBackend"]
-
-
-def _chunk_loop(round_fn: Callable) -> Callable:
-    """chunk_fn(state, xs, ys) -> (state, stacked RoundOutput): the Python
-    loop over rounds that takes the place of the reference's lax.scan."""
-    from repro_torch.core.algorithm1 import RoundOutput
-
-    def chunk_fn(state, xs, ys):
-        outs = []
-        for k in range(xs.shape[0]):
-            state, out = round_fn(state, (xs[k], ys[k]))
-            outs.append(out)
-        return state, RoundOutput(*(torch.stack(f) for f in zip(*outs)))
-
-    return chunk_fn
-
-
-def _check_engine(engine: str) -> None:
-    if engine != "sim":
-        from repro_torch.api.spec import not_ported
-        raise not_ported(f"engine={engine!r} (the distributed GossipDP "
-                         "engine)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,9 +55,7 @@ class ReferenceBackend:
     name: str = "reference"
 
     def make_chunk_program(self, spec, engine: str, device: torch.device):
-        _check_engine(engine)
-        alg = spec.build_simulator()
-        return _chunk_loop(alg.round), lambda seed: alg.init(seed, device)
+        return reference_chunk_program(spec, engine, device)
 
 
 def _check_supported(spec) -> None:
@@ -137,14 +115,14 @@ class CudaBackend:
                              "'auto', 'fused' or 'hybrid'")
 
     def make_chunk_program(self, spec, engine: str, device: torch.device):
-        _check_engine(engine)
-        alg = spec.build_simulator()
-        return (_chunk_loop(self._make_round_fn(spec, device)),
-                lambda seed: alg.init(seed, device))
+        init_fn = reference_chunk_program(spec, engine, device)[1]
+        return chunk_loop(self._make_round_fn(spec, engine, device)), init_fn
 
-    def _make_round_fn(self, spec, device: torch.device) -> Callable:
+    def _make_round_fn(self, spec, engine: str,
+                       device: torch.device) -> Callable:
         from repro_torch.api.clippers import PerNodeL2Clipper, clip_factor
         from repro_torch.core.algorithm1 import RoundOutput, SimState
+        from repro_torch.core.gossip import GossipState
         from repro_torch.core.prox import zero_fraction
         from repro_torch.kernels import round_fused as rf
 
@@ -197,9 +175,14 @@ class CudaBackend:
             sparsity = zero_fraction(m * n - nnz.sum(), m * n)
             return coeff, loss, correct, wb_loss, sparsity
 
+        sim = engine == "sim"
+
         def round_fn(state, batch):
             x, y = batch
             theta, hist = state.theta, state.history
+            if not sim:
+                theta = theta["w"]
+                hist = None if hist is None else hist["w"]
             ctx = omd.step_context(state.t + 1)
             coeff, loss, correct, wb_loss, sparsity = stats_and_coeff(
                 theta, x, y, ctx)
@@ -232,8 +215,13 @@ class CudaBackend:
 
             out = RoundOutput(loss=loss, w_bar_loss=wb_loss,
                               sparsity=sparsity, correct=correct)
-            return SimState(theta=theta_next, t=state.t + 1,
-                            generator=state.generator, history=hist), out
+            if sim:
+                return SimState(theta=theta_next, t=state.t + 1,
+                                generator=state.generator, history=hist), out
+            return GossipState(
+                theta={"w": theta_next}, t=state.t + 1,
+                generator=state.generator,
+                history=None if hist is None else {"w": hist}), out
 
         return round_fn
 

@@ -1,9 +1,11 @@
 """Clipper — enforces Assumption 2.3 (||g|| <= L) before noising.
 
-Counterpart of `repro.api.clippers` for the (m, n) gradient block of the
-simulator: clippers act per node (row). Without clipping the DP guarantee
-is vacuous for unbounded losses. This slice ports 'l2' and 'none'; 'value'
-waits in ROADMAP queue 1.
+Counterpart of `repro.api.clippers`. Clippers act per node (axis 0 of
+every leaf) on either the simulator's bare (m, n) gradient block or the
+distributed engine's node-stacked pytree: a bare tensor is a one-leaf tree
+(`core.tree`), so one implementation serves both engines. Without clipping
+the DP guarantee is vacuous for unbounded losses. This slice ports 'l2' and
+'none'; 'value' waits in ROADMAP queue 1.
 
 >>> import torch
 >>> from repro_torch.api import CLIPPERS
@@ -17,19 +19,26 @@ waits in ROADMAP queue 1.
 from __future__ import annotations
 
 import dataclasses
-from typing import Protocol, runtime_checkable
+import functools
+import operator
+from typing import Any, Protocol, runtime_checkable
 
 import torch
 
 from repro_torch.api.registry import CLIPPERS
+from repro_torch.core import tree
 
 __all__ = ["Clipper", "PerNodeL2Clipper", "NoClipper", "per_node_norms",
            "clip_factor"]
 
 
-def per_node_norms(grads: torch.Tensor) -> torch.Tensor:
-    """(m,) L2 norm of each node's row."""
-    return torch.sqrt(torch.sum(torch.square(grads), dim=1))
+def per_node_norms(grads: Any) -> torch.Tensor:
+    """(m,) global L2 norm of each node's slice across all leaves: the
+    per-leaf sums of squares, added in leaf order."""
+    sq = [torch.sum(torch.square(leaf.to(torch.float32)),
+                    dim=tuple(range(1, leaf.dim())))
+          for leaf in tree.leaves(grads)]
+    return torch.sqrt(functools.reduce(operator.add, sq))
 
 
 def clip_factor(norms: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -45,7 +54,7 @@ def clip_factor(norms: torch.Tensor, max_norm: float) -> torch.Tensor:
 class Clipper(Protocol):
     """Gradient-bounding stage. Returns (clipped, (m,) pre-clip norms)."""
 
-    def clip(self, grads: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]: ...
+    def clip(self, grads: Any) -> tuple[Any, torch.Tensor]: ...
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +66,13 @@ class PerNodeL2Clipper:
 
     def clip(self, grads):
         norms = per_node_norms(grads)
-        return grads * clip_factor(norms, self.max_norm)[:, None], norms
+        factor = clip_factor(norms, self.max_norm)
+
+        def scale(leaf):
+            f = factor.reshape((-1,) + (1,) * (leaf.dim() - 1))
+            return (leaf * f).to(leaf.dtype)
+
+        return tree.tree_map(scale, grads), norms
 
 
 @dataclasses.dataclass(frozen=True)

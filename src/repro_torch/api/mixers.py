@@ -36,6 +36,12 @@ __all__ = ["Mixer", "MixerBase", "RingRollMixer", "DelayedMixer",
            "ring_write", "ring_read"]
 
 
+def _bcast(d: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The (m,) per-node vector ``d`` shaped to broadcast over ``like``'s
+    trailing axes (a node-stacked pytree leaf may have any of them)."""
+    return d.to(like.device).reshape((-1,) + (1,) * (like.dim() - 1))
+
+
 def ring_write(hist: torch.Tensor, t: int, value: torch.Tensor) -> torch.Tensor:
     """Write this round's broadcast copy into slot t % depth, in place."""
     hist[t % hist.shape[0]] = value
@@ -57,7 +63,7 @@ def ring_read(hist: torch.Tensor, t: int, d: int,
 
 @runtime_checkable
 class Mixer(Protocol):
-    """Topology stage: mixes (m, n) tensors with A(t) along axis 0."""
+    """Topology stage: mixes (m, ...) tensors with A(t) along axis 0."""
 
     m: int
     delay: int  # rounds of staleness for neighbor terms (0 = synchronous)
@@ -97,11 +103,11 @@ class MixerBase:
     def mix(self, clean, tilde, noise_self, t):
         mixed = self.apply(tilde, t)
         if not noise_self:
-            mixed = mixed - self.diag(t).to(tilde.device)[:, None] * (tilde - clean)
+            mixed = mixed - _bcast(self.diag(t), tilde) * (tilde - clean)
         return mixed
 
     def mix_delayed(self, clean, tilde, recv, noise_self, t):
-        d = self.diag(t).to(recv.device)[:, None]
+        d = _bcast(self.diag(t), recv)
         self_term = tilde if noise_self else clean
         return self.apply(recv, t) - d * recv + d * self_term
 

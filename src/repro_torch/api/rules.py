@@ -43,6 +43,10 @@ class StepContext(NamedTuple):
 class LocalRule(Protocol):
     """Local update stage: primal recovery + dual step, mixing-agnostic."""
 
+    def init_state(self, params: torch.Tensor) -> torch.Tensor:
+        """Initial dual state for one leaf of model parameters."""
+        ...
+
     def primal(self, theta: torch.Tensor, ctx: StepContext) -> torch.Tensor:
         """State -> prediction weights w_t (steps 6-7)."""
         ...
@@ -72,11 +76,14 @@ class OMDLassoRule:
                 f"(ported: {sorted(_PROX)}); the rest waits in ROADMAP "
                 "queue 1")
 
+    def init_state(self, params):
+        return params  # theta_1 = model init (identity mirror map)
+
     def primal(self, theta, ctx):
         return _PROX[self.prox_kind](prox.l2_mirror_map(theta), ctx.lam_t)
 
     def dual_step(self, mixed, grad, ctx):
-        return mixed - ctx.alpha_t * grad
+        return mixed - ctx.alpha_t * grad.to(mixed.dtype)
 
 
 @LOCAL_RULES.register("omd")

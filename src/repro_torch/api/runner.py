@@ -1,7 +1,9 @@
-"""`repro_torch.run` — one call from RunSpec to RunResult.
+"""`repro_torch.run` — one call from RunSpec to RunResult, for either engine.
 
-Counterpart of `repro.api.runner.run` for the simulator engine. It resolves
-the spec's Stream, drives the horizon chunk by chunk through the spec's
+Counterpart of `repro.api.runner.run`. It resolves the spec's Stream,
+drives the horizon chunk by chunk on either engine — the dense simulator
+(``engine="sim"``, `core.algorithm1`) or the node-stacked distributed
+strategy (``engine="dist"``, `core.gossip.GossipDP`) — through the spec's
 backend (a Python loop over rounds in place of ``lax.scan``), threads a
 `PrivacyAccountant` into a per-round eps ledger, records the loss,
 accuracy and sparsity trajectories, computes the Definition-3 regret, and
@@ -18,13 +20,20 @@ stream is 4.0 GB); the host reads them once, at the end.
 >>> res = run(spec, exec=cfg, device="cpu")
 >>> res.rounds, res.correct.shape, float(res.eps_ledger[-1])
 (6, (6, 2), 1.0)
+>>> dist = run(spec, engine="dist", exec=cfg, device="cpu")
+>>> bool((res.final_w == dist.final_w).all())     # seeded, bit-identical
+True
+
+Both engines draw the same stream chunks and the same noise from a
+generator seeded alike, in the same order, so their iterates are
+bit-identical (see `core.gossip`).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import time
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -32,10 +41,76 @@ import torch
 from repro_torch.api.exec_config import ExecConfig
 from repro_torch.api.spec import RunSpec
 from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint
+from repro_torch.core import tree
 from repro_torch.core.privacy import PrivacyAccountant
 from repro_torch.device import resolve_device, synchronize
 
-__all__ = ["run", "RunResult", "make_chunk_program"]
+__all__ = ["run", "RunResult", "make_chunk_program",
+           "reference_chunk_program", "chunk_loop"]
+
+
+# -- JSON round-trip ---------------------------------------------------------
+#
+# A record must give back the RunResult EXACTLY: trajectories, eps ledger,
+# final parameters and (optionally) the engine state. float32 values
+# survive the trip through Python floats untouched (float32 is a subset of
+# float64, and repr round-trips), so equality is bit equality.
+
+def _encode(obj: Any) -> Any:
+    """JSON-able encoding of an array, a tensor or an engine state."""
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        return obj
+    if isinstance(obj, (np.ndarray, np.generic)):
+        arr = np.asarray(obj)
+        return {"__ndarray__": arr.tolist(), "dtype": str(arr.dtype),
+                "shape": list(arr.shape)}
+    if isinstance(obj, torch.Tensor):
+        arr = obj.detach().cpu().numpy()
+        return {"__tensor__": arr.tolist(), "dtype": str(arr.dtype),
+                "shape": list(arr.shape)}
+    if isinstance(obj, torch.Generator):
+        return {"__generator__": obj.get_state().tolist(),
+                "device": str(obj.device)}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):   # NamedTuple
+        return {"__namedtuple__": type(obj).__name__,
+                "fields": {f: _encode(getattr(obj, f)) for f in obj._fields}}
+    if isinstance(obj, dict):
+        return {"__dict__": {str(k): _encode(v) for k, v in obj.items()}}
+    if isinstance(obj, (list, tuple)):
+        return {"__list__": [_encode(v) for v in obj],
+                "tuple": isinstance(obj, tuple)}
+    raise TypeError(f"cannot encode {type(obj).__name__} for the JSON record")
+
+
+def _state_types() -> dict:
+    from repro_torch.core.algorithm1 import SimState
+    from repro_torch.core.gossip import GossipState
+    return {"SimState": SimState, "GossipState": GossipState}
+
+
+def _decode(obj: Any, device: torch.device) -> Any:
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        return obj
+    if "__ndarray__" in obj:
+        return np.asarray(obj["__ndarray__"],
+                          dtype=obj["dtype"]).reshape(obj["shape"])
+    if "__tensor__" in obj:
+        arr = np.asarray(obj["__tensor__"], dtype=obj["dtype"])
+        return torch.as_tensor(arr.reshape(obj["shape"]), device=device)
+    if "__generator__" in obj:
+        gen = torch.Generator(device=device)
+        gen.set_state(torch.tensor(obj["__generator__"], dtype=torch.uint8))
+        return gen
+    if "__namedtuple__" in obj:
+        cls = _state_types()[obj["__namedtuple__"]]
+        return cls(**{k: _decode(v, device)
+                      for k, v in obj["fields"].items()})
+    if "__dict__" in obj:
+        return {k: _decode(v, device) for k, v in obj["__dict__"].items()}
+    if "__list__" in obj:
+        seq = [_decode(v, device) for v in obj["__list__"]]
+        return tuple(seq) if obj.get("tuple") else seq
+    raise TypeError(f"cannot decode record node {obj!r}")
 
 
 @dataclasses.dataclass
@@ -65,10 +140,58 @@ class RunResult:
     final_w: np.ndarray | None = None     # (m, n) final primal parameters
     final_state: Any = None               # engine state (checkpointable)
 
+    _ARRAY_FIELDS = ("eps_ledger", "loss", "w_bar_loss", "correct",
+                     "sparsity", "regret", "final_w")
+
+    def to_record(self, include_state: bool = False) -> dict:
+        """JSON-able dict that `from_record` reconstructs exactly.
+
+        Every trajectory array, the eps ledger and final_w round-trip bit
+        for bit. ``include_state=True`` also encodes the engine state
+        (`SimState` or `GossipState`: its tensors, round counter, noise
+        generator state and history ring), so a stored record can seed a
+        resumed run.
+        """
+        rec: dict[str, Any] = {
+            "engine": self.engine,
+            "rounds": self.rounds,
+            "start_round": self.start_round,
+            "wall_clock": self.wall_clock,
+            "rounds_per_sec": self.rounds_per_sec,
+            "device": self.device,
+            "stream": self.stream,
+            "accuracy": self.accuracy,
+            "privacy": dict(self.privacy),
+        }
+        for f in self._ARRAY_FIELDS:
+            v = getattr(self, f)
+            rec[f] = None if v is None else _encode(np.asarray(v))
+        rec["final_state"] = (_encode(self.final_state)
+                              if include_state and self.final_state
+                              is not None else None)
+        return rec
+
+    @classmethod
+    def from_record(cls, rec: dict) -> "RunResult":
+        """The RunResult of a record; an encoded engine state comes back on
+        the device the run was on (and raises if that is a card and there
+        is none)."""
+        kw = {k: rec[k] for k in ("engine", "rounds", "start_round",
+                                  "wall_clock", "rounds_per_sec", "device",
+                                  "stream", "accuracy")}
+        kw["privacy"] = dict(rec.get("privacy") or {})
+        for f in cls._ARRAY_FIELDS:
+            v = rec.get(f)
+            kw[f] = None if v is None else _decode(v, torch.device("cpu"))
+        fs = rec.get("final_state")
+        kw["final_state"] = (None if fs is None else _decode(
+            fs, resolve_device(rec["device"])))
+        return cls(**kw)
+
 
 def make_chunk_program(spec: RunSpec, engine: str = "sim",
                        device: str | torch.device = "cuda"):
-    """(chunk_fn, init_fn) through the spec's backend.
+    """(chunk_fn, init_fn) for one engine, through the spec's backend.
 
     chunk_fn(state, xs, ys) runs a chunk of rounds and returns (state,
     RoundOutput of stacked per-round tensors); init_fn(seed) builds the
@@ -76,6 +199,65 @@ def make_chunk_program(spec: RunSpec, engine: str = "sim",
     """
     return spec.resolve_backend().make_chunk_program(
         spec, engine, resolve_device(device))
+
+
+def chunk_loop(round_fn: Callable) -> Callable:
+    """chunk_fn(state, xs, ys) -> (state, stacked RoundOutput): the Python
+    loop over rounds that takes the place of the reference's lax.scan."""
+    from repro_torch.core.algorithm1 import RoundOutput
+
+    def chunk_fn(state, xs, ys):
+        outs = []
+        for k in range(xs.shape[0]):
+            state, out = round_fn(state, (xs[k], ys[k]))
+            outs.append(out)
+        return state, RoundOutput(*(torch.stack(f) for f in zip(*outs)))
+
+    return chunk_fn
+
+
+def reference_chunk_program(spec: RunSpec, engine: str,
+                            device: torch.device):
+    """(chunk_fn, init_fn) of the torch-op engines — the reference backend
+    (and the init_fn every backend shares)."""
+    from repro_torch.core import prox
+    from repro_torch.core.algorithm1 import RoundOutput, hinge_loss_and_grad
+
+    m, n = spec.nodes, spec.dim
+    if n is None:
+        raise ValueError("RunSpec.dim is required by repro_torch.run")
+
+    if engine == "sim":
+        alg = spec.build_simulator()
+        return chunk_loop(alg.round), lambda seed: alg.init(seed, device)
+
+    if engine == "dist":
+        gdp = spec.build_distributed()
+        loss_and_grad = spec.loss_and_grad or hinge_loss_and_grad
+
+        def round_fn(st, batch):
+            x, y = batch
+            w = gdp.primal(st)["w"]
+            loss, grad = loss_and_grad(w, x, y)
+            correct = (torch.sign(torch.sum(w * x, dim=1)) == y).to(
+                torch.float32)
+            st, _ = gdp.update(st, {"w": grad})
+            # the metric algebra of Algorithm1.round, so the two engines'
+            # trajectories compare element for element
+            w_bar = torch.mean(w, dim=0, keepdim=True)
+            wb_loss = torch.mean(torch.clamp_min(
+                1.0 - y * torch.sum(w_bar * x, dim=-1), 0.0))
+            return st, RoundOutput(loss=loss, w_bar_loss=wb_loss,
+                                   sparsity=prox.sparsity(w),
+                                   correct=correct)
+
+        def init_fn(seed):
+            return gdp.init({"w": torch.zeros((m, n), dtype=torch.float32)},
+                            seed, device)
+
+        return chunk_loop(round_fn), init_fn
+
+    raise ValueError(f"unknown engine {engine!r}; expected 'sim' or 'dist'")
 
 
 def _boundaries(start: int, T: int, chunk_rounds: int,
@@ -94,27 +276,31 @@ def _boundaries(start: int, T: int, chunk_rounds: int,
 
 
 def _copy_state(state):
-    """An independent copy (the round writes the delay ring in place and
-    advances the generator)."""
+    """An independent copy of either engine's state (the round writes the
+    delay ring in place and advances the generator)."""
     gen = torch.Generator(device=state.generator.device)
     gen.set_state(state.generator.get_state())
-    hist = None if state.history is None else state.history.clone()
-    return state._replace(theta=state.theta.clone(), generator=gen,
-                          history=hist)
+    clone = lambda t: t.clone()  # noqa: E731
+    return state._replace(theta=tree.tree_map(clone, state.theta),
+                          generator=gen,
+                          history=tree.tree_map(clone, state.history))
 
 
-def _final_primal(spec: RunSpec, state) -> np.ndarray:
-    """(m, n) primal parameters of the final state (the schedule context
-    of its last round, as the reference's runner)."""
+def _final_primal(spec: RunSpec, engine: str, state) -> np.ndarray:
+    """(m, n) primal parameters of the final state — the same schedule
+    context for both engines (that of the last round, as the reference's
+    runner)."""
     rule = spec.resolve_local_rule()
     ctx = spec.omd_config().step_context(state.t)
-    return rule.primal(state.theta, ctx).cpu().numpy()
+    theta = state.theta if engine == "sim" else state.theta["w"]
+    return rule.primal(theta, ctx).cpu().numpy()
 
 
 def run(spec: RunSpec, engine: str = "sim", *,
         exec: ExecConfig | None = None, horizon: int | None = None,
         device: str | torch.device = "cuda") -> RunResult:
-    """Drive one run end to end and return a RunResult.
+    """Drive one run end to end on ``engine`` ("sim" or "dist") and return
+    a RunResult.
 
     ``exec=ExecConfig(...)`` carries the execution knobs. ``horizon`` cuts
     the run short of ``spec.horizon``. ``device`` defaults to CUDA and
@@ -216,6 +402,6 @@ def run(spec: RunSpec, engine: str = "sim", *,
         regret=regret,
         accuracy=(float(correct[-tail:].mean()) if correct is not None
                   else None),
-        final_w=_final_primal(spec, state),
+        final_w=_final_primal(spec, engine, state),
         final_state=state,
     )

@@ -197,5 +197,16 @@ class RunSpec:
             loss_and_grad=self.loss_and_grad or hinge_loss_and_grad,
         )
 
+    def build_distributed(self):
+        """The node-stacked pytree engine (`core.gossip.GossipDP`)."""
+        from repro_torch.core.gossip import GossipDP
+        return GossipDP(
+            omd=self.omd_config(),
+            mixer=self.resolve_mixer(),
+            mechanism=self.resolve_mechanism(),
+            local_rule=self.resolve_local_rule(),
+            clipper=self.resolve_clipper(),
+        )
+
     def replace(self, **kw: Any) -> "RunSpec":
         return dataclasses.replace(self, **kw)

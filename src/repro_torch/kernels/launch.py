@@ -1,0 +1,38 @@
+"""What every kernel wrapper of the port does around a launch.
+
+A wrapper given CPU tensors computes its kernel's plain PyTorch version
+(that is how the CPU tests run); given CUDA tensors it launches the kernel
+or raises, and never falls back. `on_card` makes that choice, `check`
+turns a launch's CUDA error code into an exception, and `aligned` hands a
+kernel that loads 16 bytes at a time a 16-byte-aligned tensor.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+__all__ = ["on_card", "check", "aligned"]
+
+
+def on_card(device: torch.device, name: str) -> bool:
+    """True to launch the kernel (CUDA), False for the plain version (CPU)."""
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"{name} takes CPU or CUDA tensors, got {device}")
+    return True
+
+
+def check(code: int, name: str, error_string: Callable[[int], bytes]) -> None:
+    """Raise if the launch returned a CUDA error (``code`` != 0)."""
+    if code:
+        msg = error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA kernel launch failed "
+                           f"(error {code}: {msg})")
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when its data is 16-byte aligned, else a copy (fresh
+    allocations are)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.core.prox import soft_threshold
 from repro_torch.kernels import build
+from repro_torch.kernels.launch import check, on_card
 
 __all__ = ["round_stats", "round_update", "dual_step", "round_stats_plain",
            "round_update_plain", "dual_step_plain", "reset_launches",
@@ -66,10 +67,7 @@ def library() -> ctypes.CDLL:
 
 
 def _raise_on_error(code: int, name: str) -> None:
-    if code:
-        msg = library().rf_error_string(code).decode()
-        raise RuntimeError(f"{name}: CUDA kernel launch failed "
-                           f"(error {code}: {msg})")
+    check(code, name, library().rf_error_string)
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device):
@@ -94,15 +92,6 @@ def _node_shape(name: str, t: torch.Tensor) -> tuple[int, int]:
     if not (1 <= m <= _INT32_MAX and 1 <= n <= _INT32_MAX):
         raise ValueError(f"{name} shape {tuple(t.shape)} out of range")
     return int(m), int(n)
-
-
-def _launch_device(device: torch.device, name: str) -> bool:
-    """True to launch the kernel (CUDA), False for the plain version (CPU)."""
-    if device.type == "cpu":
-        return False
-    if device.type != "cuda":
-        raise ValueError(f"{name} takes CPU or CUDA tensors, got {device}")
-    return True
 
 
 def reset_launches() -> None:
@@ -136,7 +125,7 @@ def round_stats(theta: torch.Tensor, x: torch.Tensor, lam_t: float,
     dev = theta.device
     _check("theta", theta, (m, n), dev)
     _check("x", x, (m, n), dev)
-    if not _launch_device(dev, "round_stats"):
+    if not on_card(dev, "round_stats"):
         return round_stats_plain(theta, x, lam_t, m_real, prox_l1=prox_l1)
     lib = library()
     scratch = torch.empty(int(lib.rf_stats_scratch_floats(m, n)),
@@ -190,7 +179,7 @@ def round_update(A: torch.Tensor, theta: torch.Tensor, delta: torch.Tensor,
         _check(name, t, (m, n), dev)
     for name, t in (("coeff", coeff), ("diag", diag), ("alive", alive)):
         _check(name, t, (m,), dev)
-    if not _launch_device(dev, "round_update"):
+    if not on_card(dev, "round_update"):
         return round_update_plain(A, theta, delta, x, recv, coeff, diag,
                                   alive, alpha_t, use_recv, noise_self)
     lib = library()
@@ -228,7 +217,7 @@ def dual_step(mixed: torch.Tensor, x: torch.Tensor, theta: torch.Tensor,
         _check(name, t, (m, n), dev)
     for name, t in (("coeff", coeff), ("alive", alive)):
         _check(name, t, (m,), dev)
-    if not _launch_device(dev, "dual_step"):
+    if not on_card(dev, "dual_step"):
         return dual_step_plain(mixed, x, theta, coeff, alive, alpha_t)
     lib = library()
     out = torch.empty((m, n), dtype=torch.float32, device=dev)

@@ -73,7 +73,53 @@ def test_entry_points_default_to_cuda_and_refuse_without_it():
     assert res.device == "cpu" and res.final_w.shape == (4, 30)
 
 
+def test_dist_entry_points_default_to_cuda_and_refuse_without_it():
+    """The distributed engine's entry points follow the same device rule:
+    run(engine="dist"), GossipDP.init, state_from_jax, and a record's
+    engine state decoded onto a card."""
+    from repro_torch.convert import state_from_jax
+    spec = RunSpec(**SPEC)
+    gdp = spec.build_distributed()
+    params = {"w": torch.zeros((4, 30))}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run(spec, engine="dist", exec=CFG)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gdp.init(params, 0)
+    arrays = {"theta/w": np.zeros((4, 30), np.float32), "t": np.int32(2)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        state_from_jax(arrays)
+    assert state_from_jax(arrays, "cpu").theta["w"].device.type == "cpu"
+    assert gdp.init(params, 0, device="cpu").theta["w"].device.type == "cpu"
+    rec = run(spec, engine="dist", exec=CFG, device="cpu").to_record(
+        include_state=True)
+    assert repro_torch.RunResult.from_record(rec).final_state.t == 4
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.RunResult.from_record({**rec, "device": "cuda"})
+
+
+def test_package_exports_the_distributed_engine_and_ops():
+    from repro_torch.core import gossip
+    for name in ("GossipDP", "GossipState", "gossip_mix_tree",
+                 "per_node_clip"):
+        assert getattr(repro_torch, name) is getattr(gossip, name)
+        assert getattr(repro_torch.api, name) is getattr(gossip, name)
+    assert repro_torch.ops is repro_torch.api.ops
+    assert callable(repro_torch.ops.pdomd_update)
+
+
 def test_kernel_wrapper_takes_the_plain_version_for_cpu_tensors():
+    from repro_torch.kernels import hinge_grad, pdomd_update
+    hinge_grad.reset_launches()
+    pdomd_update.reset_launches()
+    t = torch.ones((8, 128))
+    assert torch.equal(pdomd_update.pdomd_update(t, t, t, t, 0.1, 0.2)[1],
+                       pdomd_update.pdomd_update_plain(t, t, t, t, 0.1,
+                                                       0.2)[1])
+    x, y, w = torch.ones((2, 128)), torch.ones(2), torch.zeros(128)
+    assert torch.equal(hinge_grad.hinge_grad(x, y, w)[1],
+                       hinge_grad.hinge_grad_plain(x, y, w)[1])
+    assert pdomd_update.pdomd_update.launches == 0
+    assert hinge_grad.hinge_grad.launches == 0
     rf.reset_launches()
     rng = np.random.default_rng(0)
     mixed, x, theta = (torch.from_numpy(rng.standard_normal((3, 7)).astype(
@@ -109,8 +155,13 @@ def test_unported_stages_raise_naming_the_roadmap(field, value):
 
 
 def test_dist_engine_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        run(RunSpec(**SPEC), engine="dist", exec=CFG, device="cpu")
+    """The distributed engine was the last engine refused; it is ported
+    now (tests/test_torch_gossip.py holds it to the reference), so only an
+    engine that exists in neither package is refused."""
+    res = run(RunSpec(**SPEC), engine="dist", exec=CFG, device="cpu")
+    assert res.engine == "dist" and res.final_w.shape == (4, 30)
+    with pytest.raises(ValueError, match="'sim' or 'dist'"):
+        run(RunSpec(**SPEC), engine="sharded", exec=CFG, device="cpu")
 
 
 def test_cuda_backend_refusals_match_the_reference():
