@@ -15,14 +15,22 @@ Phases (any failure raises, and the script exits non-zero):
 3. kernels   — hold ``round_stats``, ``round_update`` and ``dual_step``
                against their plain PyTorch versions at the main path's shape
                (m=64, n=10,000), the fused mode's largest (m=1024,
-               n=65,536) and a ragged one (m=7, n=1,000); hold
+               n=65,536) and a ragged one (m=7, n=1,000) — ``round_update``
+               on both paths: the main path's ring through its CSR form
+               (sparse) and a dense softmax A (dense). With the ring A the
+               sparse path must equal the dense one bit for bit at
+               (64, 10,000) and (7, 1,000); two calls of a redesigned kernel
+               on one input must agree bit for bit; ``round_stats`` must put
+               one kernel and no memset on the card per call. Hold
                ``pdomd_update`` at (rows, 128) for rows = 5,000 (the paper's
                node stack), 262,144 and 8, and ``hinge_grad`` at
                (B, n) = (64, 10,112) (one round of the ring, n zero-padded
                to a multiple of 128), (99,968, 10,112) (the whole paper
                stream), (100, 384) (ragged) and (256, 65,536) (too wide to
                stage in shared memory); time each at its first shape by the
-               profiler's device time, beside its bound.
+               profiler's device time, beside its bound (``round_update``
+               with the ring through the sparse path, and on a line before
+               it the dense path with the softmax A).
 4. main path — ``repro_torch.run`` at the paper's scale (m=64, n=10,000,
                T=1,562 rounds = 100,000 samples, social_sparse, ring,
                Laplace eps=1 coordinate, L2 clip 1, alpha0=1, lam=1e-3),
@@ -70,11 +78,14 @@ KERNEL_TOL = 1e-5           # kernel vs plain version, float outputs
 FLOAT_TOL = 5e-6            # the port's float contract between backends
 MAIN_M, MAIN_N = 64, 10_000
 KERNEL_SHAPES = ((MAIN_M, MAIN_N), (1024, 65_536), (7, 1_000))
+BITWISE_SHAPES = ((MAIN_M, MAIN_N), (7, 1_000))   # sparse == dense, ring A
+UPDATE_FLAGS = tuple(itertools.product((0, 1), (True, False)))
 SOURCE = "src/repro_torch/csrc/round_fused.cu"
 ROUND_KERNELS = ("round_stats", "round_update", "dual_step")
 REPLACES = {
     "round_stats": "src/repro/kernels/round_fused.py:130",
     "round_update": "src/repro/kernels/round_fused.py:194",
+    "round_update_dense": "src/repro/kernels/round_fused.py:194",
     "dual_step": "src/repro/kernels/round_fused.py:249",
     "pdomd_update": "src/repro/kernels/pdomd_update.py:49",
     "hinge_grad": "src/repro/kernels/hinge_grad.py:57",
@@ -143,7 +154,11 @@ def build_phase() -> float:
 # -- 3. kernels --------------------------------------------------------------
 
 def _inputs(m: int, n: int, seed: int, dev):
+    """Random round inputs, a dense softmax A and the main path's ring
+    (its dense A, self weights and CSR form)."""
     import torch
+    from repro_torch.core.graph import ring_edges
+    from repro_torch.kernels.round_fused import MixCSR
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
 
@@ -153,23 +168,41 @@ def _inputs(m: int, n: int, seed: int, dev):
     A = torch.softmax(randn(m, m), dim=1)   # dense row-stochastic mix
     alive = torch.ones(m, device=dev)
     alive[m // 2] = 0.0                      # one crash-frozen row
+    ring = ring_edges(m)
     return dict(theta=randn(m, n), x=randn(m, n) / math.sqrt(n),
                 delta=0.1 * randn(m, n), recv=randn(m, n),
                 mixed=randn(m, n), coeff=randn(m), A=A,
-                diag=A.diagonal().contiguous(), alive=alive)
+                diag=A.diagonal().contiguous(), alive=alive,
+                ring_A=torch.as_tensor(ring.to_dense(), device=dev),
+                ring_diag=torch.as_tensor(ring.diag(), device=dev),
+                ring_csr=MixCSR.from_graph(ring, dev))
+
+
+def _update_args(d, mix: str, use_recv=0, noise_self=True) -> tuple:
+    """round_update's positional arguments with the ring's or the softmax
+    A."""
+    A, diag = (d["ring_A"], d["ring_diag"]) if mix == "ring" \
+        else (d["A"], d["diag"])
+    return (A, d["theta"], d["delta"], d["x"], d["recv"], d["coeff"], diag,
+            d["alive"], 0.25, use_recv, noise_self)
 
 
 def _calls(rf, d, use_recv=0, noise_self=True):
-    """(kernel call, plain call) per kernel on one input set."""
+    """(kernel call, plain call) per kernel on one input set:
+    ``round_update`` mixes with the main path's ring through the sparse
+    path (its CSR form), ``round_update_dense`` with the softmax A through
+    the dense path."""
     stats = (d["theta"], d["x"], 0.5, d["theta"].shape[0])
-    upd = (d["A"], d["theta"], d["delta"], d["x"], d["recv"], d["coeff"],
-           d["diag"], d["alive"], 0.25, use_recv, noise_self)
+    ring = _update_args(d, "ring", use_recv, noise_self)
+    dense = _update_args(d, "softmax", use_recv, noise_self)
     dual = (d["mixed"], d["x"], d["theta"], d["coeff"], d["alive"], 0.25)
     return {
         "round_stats": (lambda: rf.round_stats(*stats),
                         lambda: rf.round_stats_plain(*stats)),
-        "round_update": (lambda: rf.round_update(*upd),
-                         lambda: rf.round_update_plain(*upd)),
+        "round_update": (lambda: rf.round_update(*ring, csr=d["ring_csr"]),
+                         lambda: rf.round_update_plain(*ring)),
+        "round_update_dense": (lambda: rf.round_update(*dense),
+                               lambda: rf.round_update_plain(*dense)),
         "dual_step": (lambda: rf.dual_step(*dual),
                       lambda: rf.dual_step_plain(*dual)),
     }
@@ -177,8 +210,10 @@ def _calls(rf, d, use_recv=0, noise_self=True):
 
 # outputs that are sums over a node's row or a column (round_stats' four
 # float outputs; round_update's next, through A @ r) — see _compare
-REDUCED = {"round_stats": (0, 1, 3, 4), "round_update": (0,), "dual_step": (),
-           "pdomd_update": (), "hinge_grad": (0, 1, 2)}
+REDUCED = {"round_stats": (0, 1, 3, 4), "round_update": (0,),
+           "round_update_dense": (0,), "dual_step": (), "pdomd_update": (),
+           "hinge_grad": (0, 1, 2)}
+REDESIGNED = ("round_stats", "round_update", "round_update_dense")
 
 
 def _compare(name, got, want, where) -> float:
@@ -261,15 +296,21 @@ def _device_ms(fn, reps: int = 20, repeats: int = 5) -> float:
     return statistics.median(samples)
 
 
-def _work(name: str, m: int, n: int) -> tuple[int, int]:
+def _work(name: str, m: int, n: int, nnz: int | None = None
+          ) -> tuple[int, int]:
     """(bytes, flops) the function needs at the main path's flags: each
-    input read once, each output written once."""
+    input read once, each output written once. For ``round_update`` the
+    mix is the dense (m, m) A (m^2 floats in, 2 m^2 n flops) unless ``nnz``
+    is given: then A's CSR form with nnz non-zeros (m + 1 + 2 nnz words
+    in, 2 nnz n flops) — the ring's 3 m at the main path."""
     mn = m * n
     if name == "round_stats":      # theta, x in; dot, xsq, nnz, wbdot, wsum
         return 4 * (2 * mn + 4 * m + n), 12 * mn
-    if name == "round_update":     # A, theta, delta, x, coeff, diag, alive in;
-        return (4 * (m * m + 3 * mn + 3 * m + 2 * mn),   # next, tilde out
-                2 * m * m * n + 8 * mn)
+    if name.startswith("round_update"):   # A, theta, delta, x, coeff, diag,
+        a_words, mix_flops = ((m * m, 2 * m * m * n) if nnz is None  # alive
+                              else (m + 1 + 2 * nnz, 2 * nnz * n))   # in;
+        return (4 * (a_words + 3 * mn + 3 * m + 2 * mn),  # next, tilde out
+                mix_flops + 8 * mn)
     if name == "pdomd_update":     # four (rows, 128) in; w, theta_new out
         return 4 * 6 * mn, 10 * mn
     if name == "hinge_grad":       # x, y, w in; loss, margin, g out
@@ -284,13 +325,13 @@ def _rotate(fns):
 
 
 def _measure(name: str, kern, plain, m: int, n: int, err: float,
-             source: str, card: str) -> dict:
+             source: str, card: str, nnz: int | None = None) -> dict:
     """Time a kernel (lists of calls over rotating input sets) and its plain
     version at shape (m, n); the kernels line's entry for it."""
     ms = _device_ms(_rotate(kern))
     plain_ms = _device_ms(_rotate(plain))
     call_ms = _call_ms(_rotate(kern))
-    nbytes, flops = _work(name, m, n)
+    nbytes, flops = _work(name, m, n, nnz)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
     bound_ms = max(t_bytes, t_ops) * 1e3
     entry = dict(
@@ -299,7 +340,10 @@ def _measure(name: str, kern, plain, m: int, n: int, err: float,
         bound_ms=bound_ms,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=None, call_ms=call_ms)
-    log(f"kernel {name}: {ms * 1e3:.2f} us device time (median) at "
+    label = {"round_update": "round_update (ring A, sparse path)",
+             "round_update_dense": "round_update (softmax A, dense path)"}
+    log(f"kernel {label.get(name, name)}: {ms * 1e3:.2f} us device time "
+        f"(median) at "
         f"{m}x{n} | {nbytes / 1e6:.2f} MB, bound {bound_ms * 1e3:.2f} us at "
         f"3.35 TB/s ({entry['bound_by']}) | plain version "
         f"{plain_ms * 1e3:.2f} us device time | {call_ms * 1e3:.2f} us per "
@@ -308,39 +352,102 @@ def _measure(name: str, kern, plain, m: int, n: int, err: float,
     return entry
 
 
+def _device_events(fn, reps: int = 5) -> list[str]:
+    """Names of the device events (kernels, memsets, copies) that ``reps``
+    calls of ``fn`` put on the card, after one warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+
+
+def kernel_checks(card: str) -> dict:
+    """Hold each round kernel against its plain version at every shape of
+    KERNEL_SHAPES and flag set; the redesigned ones also against a second
+    call on the same input (bit for bit: no float atomics), and the sparse
+    ``round_update`` against the dense one with the ring A (bit for bit).
+    Returns each kernel's largest difference from its plain version."""
+    import torch
+    from repro_torch.kernels import round_fused as rf
+    dev = torch.device("cuda")
+    errs = {k: 0.0 for k in (*ROUND_KERNELS, "round_update_dense")}
+    for m, n in KERNEL_SHAPES:
+        d = _inputs(m, n, seed=m * 7919 + n, dev=dev)
+        for use_recv, noise_self in UPDATE_FLAGS:
+            where = (f"m={m} n={n} use_recv={use_recv} "
+                     f"noise_self={noise_self}")
+            calls = _calls(rf, d, use_recv, noise_self)
+            for name, (kern, plain) in calls.items():
+                if not name.startswith("round_update") and (
+                        use_recv or not noise_self):
+                    continue
+                got = kern()
+                errs[name] = max(errs[name], _compare(name, got, plain(),
+                                                      where))
+                if name in REDESIGNED:
+                    again = kern()
+                    require(all(torch.equal(a, b)
+                                for a, b in zip(got, again)),
+                            f"{name}: two calls on one input differ at "
+                            f"{where}")
+            if (m, n) in BITWISE_SHAPES:
+                sparse = calls["round_update"][0]()
+                dense = rf.round_update(*_update_args(d, "ring", use_recv,
+                                                      noise_self))
+                require(all(torch.equal(a, b) for a, b in zip(sparse, dense)),
+                        f"round_update: sparse and dense paths differ with "
+                        f"the ring A at {where}")
+        del d, calls
+        torch.cuda.synchronize()
+        log(f"kernels agree with their plain versions at m={m}, n={n}"
+            + ("; round_update sparse == dense bit for bit with the ring A"
+               if (m, n) in BITWISE_SHAPES else "")
+            + "; two calls of each redesigned kernel equal bit for bit")
+    d = _inputs(MAIN_M, MAIN_N, seed=1, dev=dev)
+    calls = _calls(rf, d)
+    for name in ("round_stats", "round_update"):
+        names = _device_events(calls[name][0])
+        require(len(names) == 5 and not any("emset" in e for e in names),
+                f"{name}: 5 calls put {len(names)} device events on the "
+                f"card: {sorted(set(names))}")
+        log(f"{name}: one kernel per call, no memset ({names[0][:60]})")
+    del d, calls
+    torch.cuda.empty_cache()
+    return errs
+
+
 def kernel_phase(card: str):
     """Hold each kernel against its plain version; time it. Returns the
     per-kernel measurements (launch counts are filled in later)."""
     import torch
     from repro_torch.kernels import round_fused as rf
     dev = torch.device("cuda")
-    errs = {k: 0.0 for k in ROUND_KERNELS}
-    for m, n in KERNEL_SHAPES:
-        d = _inputs(m, n, seed=m * 7919 + n, dev=dev)
-        for use_recv in (0, 1):
-            for noise_self in (True, False):
-                calls = _calls(rf, d, use_recv, noise_self)
-                for name, (kern, plain) in calls.items():
-                    if name != "round_update" and (use_recv or not noise_self):
-                        continue
-                    errs[name] = max(errs[name], _compare(
-                        name, kern(), plain(),
-                        f"m={m} n={n} use_recv={use_recv} "
-                        f"noise_self={noise_self}"))
-        del d
-        torch.cuda.synchronize()
-        log(f"kernels agree with their plain versions at m={m}, n={n}")
-    torch.cuda.empty_cache()
+    errs = kernel_checks(card)
 
     # time at the main path's shape, rotating over input sets that together
     # exceed the 50 MB L2, so every launch reads its inputs from HBM
     sets = [_inputs(MAIN_M, MAIN_N, seed=s, dev=dev) for s in range(10)]
+    ring_nnz = sets[0]["ring_csr"].indices.numel()
     results = {}
-    for name in ROUND_KERNELS:
+    for name in ("round_stats", "round_update_dense", "round_update",
+                 "dual_step"):
         results[name] = _measure(
             name, [_calls(rf, d)[name][0] for d in sets],
             [_calls(rf, d)[name][1] for d in sets], MAIN_M, MAIN_N,
-            errs[name], SOURCE, card)
+            errs[name], SOURCE, card,
+            nnz=ring_nnz if name == "round_update" else None)
+    dense = results.pop("round_update_dense")
+    results["round_update"]["dense_path"] = {
+        k: dense[k] for k in ("ms", "plain_ms", "bound_ms", "call_ms",
+                              "max_abs_err")}
     del sets
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -516,11 +623,15 @@ def main_path(card: str):
     res = run(spec, exec=cfg, device=DEVICE)
     wall = time.perf_counter() - t0
     launches = {k: getattr(rf, k).launches for k in ROUND_KERNELS}
+    sparse = rf.round_update.sparse_launches
     log(f"main path: {T} rounds, run() {wall:.2f} s with regret; round "
         f"loop {res.wall_clock:.3f} s = {res.rounds_per_sec:.1f} rounds/s; "
-        f"launches {launches} | {card}")
-    require(launches["round_stats"] == T and launches["round_update"] == T,
-            f"fused kernels launched {launches}, expected {T} each")
+        f"launches {launches}, round_update's sparse path {sparse} | {card}")
+    require(launches["round_stats"] == T and launches["round_update"] == T
+            and sparse == T,
+            f"fused kernels launched {launches} ({sparse} sparse), expected "
+            f"{T} each, every round_update on the sparse path")
+    launches["round_update_sparse"] = sparse
     for f in ("final_w", "loss", "w_bar_loss", "sparsity", "regret"):
         v = np.asarray(getattr(res, f))
         require(bool(np.isfinite(v).all()), f"main path: {f} not finite")
@@ -620,8 +731,11 @@ def dist_phase(sim, card: str) -> dict:
         f"{dist.rounds_per_sec:.1f} rounds/s (sim, phase 4: "
         f"{sim.rounds_per_sec:.1f} rounds/s); launches {launches} | {card}")
     require(launches == {"round_stats": T, "round_update": T,
-                         "dual_step": 0},
-            f"dist run launched {launches}, expected {T} fused launches each")
+                         "dual_step": 0}
+            and rf.round_update.sparse_launches == T,
+            f"dist run launched {launches} ({rf.round_update.sparse_launches}"
+            f" sparse), expected {T} fused launches each, round_update on "
+            "the sparse path")
     skip = {"engine", "wall_clock", "rounds_per_sec", "final_state"}
     for f in dataclasses.fields(dist):
         if f.name in skip:
@@ -737,6 +851,8 @@ def main() -> int:
         entry["path"] = PATHS[name]
         if name in dist_launches and dist_launches[name]:
             entry["dist_launches"] = dist_launches[name]
+    kernels["round_update"]["sparse_launches"] = launches[
+        "round_update_sparse"]
     log(smi)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,9 @@ engines ("sim" and "dist") work with either backend unchanged:
                 the hand-written Hopper kernels of
                 `repro_torch.kernels.round_fused`: prox + per-node stats in
                 ``round_stats``, the clip folded into a per-node coefficient,
-                noise-add + dense mix + dual step + crash freeze in
-                ``round_update``.
+                noise-add + mix + dual step + crash freeze in
+                ``round_update`` (from the graph's non-zeros when it has
+                few per row, as the ring does; else the dense A).
 
 Both backends share each engine's state (`SimState`, or `GossipState` with
 ``theta={"w": ...}``) and draw the noise the same way from the state's
@@ -23,8 +24,10 @@ order differs from torch's).
 
 Modes of "cuda" (``backend_options={"mode": ...}``):
 
-  fused  — mixing happens INSIDE ``round_update`` through the dense (m, m)
-           A of the spec's fixed topology; needs m <= ``max_fused_nodes``.
+  fused  — mixing happens INSIDE ``round_update`` through the spec's fixed
+           topology: its CSR form (`round_fused.sparse_mix`) when no row
+           holds more than 16 non-zeros, else the dense (m, m) A; needs
+           m <= ``max_fused_nodes``.
   hybrid — mixing stays in torch ops (``mixer.mix`` / ``mix_history``)
            between ``round_stats`` and ``dual_step``.
   auto   — fused when the mixer lowers to a fixed sparse graph and m fits,
@@ -84,16 +87,18 @@ def _check_supported(spec) -> None:
 
 
 def _dense_mix_form(mixer, device: torch.device):
-    """(A, diag, delay) dense mixing form for the fused mode, or None when
-    the mixer has no fixed sparse lowering."""
+    """(A, diag, delay, csr) mixing form for the fused mode, or None when
+    the mixer has no fixed sparse lowering. ``csr`` is A's CSR form when
+    the graph has few non-zeros per row (the sparse path), else None."""
     from repro_torch.api.shard_node import sparse_graph_and_delay
+    from repro_torch.kernels.round_fused import sparse_mix
     try:
         graph, delay = sparse_graph_and_delay(mixer)
     except ValueError:
         return None
     A = torch.as_tensor(graph.to_dense(), dtype=torch.float32, device=device)
     diag = torch.as_tensor(graph.diag(), dtype=torch.float32, device=device)
-    return A, diag, delay
+    return A, diag, delay, sparse_mix(graph, device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,7 +156,7 @@ class CudaBackend:
                     f"{type(mixer).__name__}, m={m}); use mode='hybrid' or "
                     f"'auto'")
         if dense is not None:
-            A, diag_v, delay = dense
+            A, diag_v, delay, csr = dense
         else:
             delay = int(getattr(mixer, "delay", 0))
         alive = torch.ones(m, dtype=torch.float32, device=device)
@@ -201,7 +206,7 @@ class CudaBackend:
                     recv, use_recv = theta, 0
                 theta_next, _ = rf.round_update(
                     A, theta, delta, x, recv.contiguous(), coeff, diag_v,
-                    alive, ctx.alpha_t, use_recv, mech.noise_self)
+                    alive, ctx.alpha_t, use_recv, mech.noise_self, csr=csr)
             else:
                 tilde = theta + delta
                 if delay:

@@ -1,8 +1,9 @@
 """The fixed sparse form behind a mixer, for the fused backend.
 
 Counterpart of the piece of `repro.api.shard_node` that lowers a mixer to
-its `SparseGraph` (``sparse_graph_and_delay``); the fused backend densifies
-that graph into the (m, m) A its ``round_update`` kernel mixes with. The
+its `SparseGraph` (``sparse_graph_and_delay``); the fused backend hands
+that graph's CSR form (or, with many non-zeros per row, its dense (m, m) A)
+to the ``round_update`` kernel it mixes with. The
 node-sharded path itself waits in ROADMAP queue 1 (item 11).
 """
 from __future__ import annotations

@@ -98,6 +98,13 @@ class SparseGraph:
     def edges(self) -> int:
         return int(self.dst.size)
 
+    @property
+    def indptr(self) -> np.ndarray:
+        """(m + 1,) CSR row pointers: edges of row i live in
+        ``[indptr[i], indptr[i+1])`` of the (dst, src)-sorted edge arrays."""
+        counts = np.bincount(self.dst, minlength=self.m)
+        return np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+
     def diag(self) -> np.ndarray:
         """(m,) self-weights A[i, i] (0 where no self-loop is stored)."""
         d = np.zeros(self.m, np.float32)

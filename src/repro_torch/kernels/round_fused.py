@@ -18,21 +18,38 @@ and the hybrid backend mixes with torch ops between ``round_stats`` and
 
     dual_step     next = mixed - alpha*(coeff*x), dead rows frozen.
 
+``round_stats`` is one launch: each block stages its slab of theta and x
+with all loads in flight at once, and the last block to finish (an int32
+ticket counter, one per device and stream, owned here and reset by that
+block) sums every block's per-node partials in a fixed order — no float
+atomics, bit-stable from run to run.
+
+``round_update`` mixes one of two ways. Given ``csr`` (a `MixCSR`, A's
+non-zeros in ascending column order; `sparse_mix` builds one from a
+`SparseGraph` when no row holds more than ``SPARSE_MAX_ROW_NNZ`` = 16 of
+them, as for the ring) it sums only the non-zeros, with neighbours' r from
+shared memory; given only A it runs the dense tiled product. Both add in
+ascending k with fmaf from 0, so on the same A they agree bit for bit.
+
 Each wrapper checks device, dtype (float32), shape and contiguity and raises
 on anything its kernel does not take. Given CPU tensors it computes its
-plain PyTorch version (``*_plain``, beside it) — that is how the CPU tests
+plain PyTorch version (``*_plain``, beside it; ``round_update_plain`` is
+``A @ r`` whichever path the card would take) — that is how the CPU tests
 run the fused backend. Given CUDA tensors it allocates its outputs with
 ``torch.empty``, launches the kernel on the current stream and raises if the
 launch failed; it never falls back. ``<wrapper>.launches`` counts kernel
-launches (``reset_launches()`` zeroes them), so a run can show that it went
-through the kernels. Unlike the TPU kernels, nothing is padded to (8, 128):
-the kernels mask their ragged edges, and ``nnz`` is an exact int32 count.
+launches (``round_update.sparse_launches`` those of the sparse path;
+``reset_launches()`` zeroes them), so a run can show that it went through
+the kernels. Unlike the TPU kernels, nothing is padded to (8, 128): the
+kernels mask their ragged edges, and ``nnz`` is an exact int32 count.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
+import numpy as np
 import torch
 
 from repro_torch.core.prox import soft_threshold
@@ -41,10 +58,16 @@ from repro_torch.kernels.launch import check, on_card
 
 __all__ = ["round_stats", "round_update", "dual_step", "round_stats_plain",
            "round_update_plain", "dual_step_plain", "reset_launches",
+           "MixCSR", "sparse_mix", "SPARSE_MAX_ROW_NNZ", "SPARSE_MAX_NODES",
            "library", "SOURCE"]
 
 SOURCE = "round_fused.cu"
 _INT32_MAX = 2**31 - 1
+# the sparse mix wins while a row's non-zeros are < ~0.6 m (csrc header);
+# 16 keeps it there from m = 27 up, and the ring has 3
+SPARSE_MAX_ROW_NNZ = 16
+# the sparse path's block holds all m rows of its column slab
+SPARSE_MAX_NODES = 2048
 
 
 @functools.lru_cache(maxsize=None)
@@ -52,13 +75,17 @@ def library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = build.load(SOURCE)
     P, F, I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
-    lib.rf_stats_scratch_floats.argtypes = [I, I]
-    lib.rf_stats_scratch_floats.restype = ctypes.c_int64
-    lib.rf_round_stats.argtypes = [P, P, F, F, I, I, I, P, P, P, P, P, P, P]
+    lib.rf_stats_scratch_float4s.argtypes = [I, I, I]
+    lib.rf_stats_scratch_float4s.restype = ctypes.c_int64
+    lib.rf_round_stats.argtypes = [P, P, F, F, I, I, I, I, P, P, P, P, P, P,
+                                   P, P]
     lib.rf_round_stats.restype = I
     lib.rf_round_update.argtypes = [P, P, P, P, P, P, P, P, F, I, I, I, I,
-                                    P, P, P]
+                                    I, P, P, P]
     lib.rf_round_update.restype = I
+    lib.rf_round_update_sparse.argtypes = [P, P, P, I, P, P, P, P, P, P, P,
+                                           F, I, I, I, I, I, P, P, P]
+    lib.rf_round_update_sparse.restype = I
     lib.rf_dual_step.argtypes = [P, P, P, P, P, F, I, I, P, P]
     lib.rf_dual_step.restype = I
     lib.rf_error_string.argtypes = [I]
@@ -94,15 +121,39 @@ def _node_shape(name: str, t: torch.Tensor) -> tuple[int, int]:
     return int(m), int(n)
 
 
+def _vec(n: int, *ts: torch.Tensor) -> int:
+    """4 when rows can be read as float4 (n % 4 == 0, 16-byte aligned
+    data), else 1."""
+    return 4 if n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in ts) \
+        else 1
+
+
 def reset_launches() -> None:
     """Zero the launch counts of all three wrappers."""
     for fn in (round_stats, round_update, dual_step):
         fn.launches = 0
+    round_update.sparse_launches = 0
 
 
 # ---------------------------------------------------------------------------
 # round_stats
 # ---------------------------------------------------------------------------
+
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _stats_counter(dev: torch.device, stream) -> torch.Tensor:
+    """The int32 ticket counter of ``round_stats``' last-block finalize on
+    this device and stream: zeroed once when first used, then reset to 0 by
+    the last block of every launch. One per stream, so concurrent calls on
+    two streams never share one; calls on one stream run in order."""
+    key = (dev.index, stream.cuda_stream)
+    counter = _COUNTERS.get(key)
+    if counter is None:
+        counter = _COUNTERS[key] = torch.zeros(1, dtype=torch.int32,
+                                               device=dev)
+    return counter
+
 
 def round_stats_plain(theta, x, lam_t, m_real, *, prox_l1: bool = True):
     """Plain PyTorch version of `round_stats` (same outputs and types)."""
@@ -128,18 +179,21 @@ def round_stats(theta: torch.Tensor, x: torch.Tensor, lam_t: float,
     if not on_card(dev, "round_stats"):
         return round_stats_plain(theta, x, lam_t, m_real, prox_l1=prox_l1)
     lib = library()
-    scratch = torch.empty(int(lib.rf_stats_scratch_floats(m, n)),
+    vec = _vec(n, theta, x)
+    scratch = torch.empty(4 * int(lib.rf_stats_scratch_float4s(m, n, vec)),
                           dtype=torch.float32, device=dev)
     dot, xsq, wbdot = (torch.empty(m, dtype=torch.float32, device=dev)
                        for _ in range(3))
     nnz = torch.empty(m, dtype=torch.int32, device=dev)
     wsum = torch.empty(n, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev)
         code = lib.rf_round_stats(
             theta.data_ptr(), x.data_ptr(), float(lam_t), float(m_real),
-            int(bool(prox_l1)), m, n, scratch.data_ptr(), dot.data_ptr(),
+            int(bool(prox_l1)), m, n, vec, scratch.data_ptr(),
+            _stats_counter(dev, stream).data_ptr(), dot.data_ptr(),
             xsq.data_ptr(), nnz.data_ptr(), wbdot.data_ptr(),
-            wsum.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            wsum.data_ptr(), stream.cuda_stream)
     _raise_on_error(code, "round_stats")
     round_stats.launches += 1
     return dot, xsq, nnz, wbdot, wsum
@@ -148,6 +202,82 @@ def round_stats(theta: torch.Tensor, x: torch.Tensor, lam_t: float,
 # ---------------------------------------------------------------------------
 # round_update
 # ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MixCSR:
+    """CSR form of a fixed (m, m) mixing matrix, for ``round_update``'s
+    sparse path: row i's non-zeros are ``weights[indptr[i]:indptr[i+1]]``
+    at columns ``indices[...]``, strictly ascending. Built once per run
+    (`from_graph`); construction checks the types and shapes and, on one
+    host copy, the values, and raises on anything malformed."""
+
+    indptr: torch.Tensor     # (m + 1,) int32
+    indices: torch.Tensor    # (nnz,) int32
+    weights: torch.Tensor    # (nnz,) float32
+
+    def __post_init__(self):
+        for name, dtype in (("indptr", torch.int32), ("indices", torch.int32),
+                            ("weights", torch.float32)):
+            t = getattr(self, name)
+            if not isinstance(t, torch.Tensor):
+                raise TypeError(f"MixCSR.{name} must be a torch.Tensor, got "
+                                f"{type(t).__name__}")
+            if t.dtype != dtype:
+                raise TypeError(f"MixCSR.{name} must be {dtype}, got "
+                                f"{t.dtype}")
+            if t.dim() != 1 or not t.is_contiguous():
+                raise ValueError(f"MixCSR.{name} must be a contiguous 1-D "
+                                 f"tensor, got shape {tuple(t.shape)}")
+            if t.device != self.indptr.device:
+                raise ValueError(f"MixCSR.{name} is on {t.device}, indptr "
+                                 f"on {self.indptr.device}")
+        if self.indptr.numel() < 2:
+            raise ValueError("MixCSR.indptr needs m + 1 >= 2 entries")
+        if self.indices.numel() != self.weights.numel():
+            raise ValueError(f"MixCSR: {self.indices.numel()} indices but "
+                             f"{self.weights.numel()} weights")
+        ptr = self.indptr.cpu().numpy().astype(np.int64)
+        idx = self.indices.cpu().numpy().astype(np.int64)
+        nnz, m = idx.size, ptr.size - 1
+        if ptr[0] != 0 or ptr[-1] != nnz or np.any(np.diff(ptr) < 0):
+            raise ValueError(f"MixCSR.indptr must rise from 0 to nnz={nnz}, "
+                             f"got {ptr[0]} .. {ptr[-1]}")
+        if nnz and (idx.min() < 0 or idx.max() >= m):
+            raise ValueError(f"MixCSR.indices out of range for m={m}")
+        rows = np.repeat(np.arange(m), np.diff(ptr))
+        if np.any(np.diff(rows * m + idx) <= 0):
+            raise ValueError("MixCSR.indices must rise strictly in each row")
+
+    @property
+    def m(self) -> int:
+        return self.indptr.numel() - 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.indptr.device
+
+    @classmethod
+    def from_graph(cls, graph, device) -> "MixCSR":
+        """The CSR form of a `SparseGraph` (edges sorted by (dst, src),
+        duplicates merged): exactly the non-zeros ``graph.to_dense()``
+        holds, in ascending column order."""
+        dev = torch.device(device)
+        return cls(
+            indptr=torch.as_tensor(graph.indptr.astype(np.int32), device=dev),
+            indices=torch.as_tensor(graph.src.astype(np.int32), device=dev),
+            weights=torch.as_tensor(graph.weight.astype(np.float32),
+                                    device=dev))
+
+
+def sparse_mix(graph, device) -> MixCSR | None:
+    """``graph``'s CSR form when no row holds more than
+    ``SPARSE_MAX_ROW_NNZ`` non-zeros (the sparse path pays then) and the
+    sparse path takes its m, else None (the dense path)."""
+    if graph.m > SPARSE_MAX_NODES or \
+            int(np.max(np.diff(graph.indptr))) > SPARSE_MAX_ROW_NNZ:
+        return None
+    return MixCSR.from_graph(graph, device)
+
 
 def round_update_plain(A, theta, delta, x, recv, coeff, diag, alive,
                        alpha_t, use_recv, noise_self):
@@ -163,13 +293,16 @@ def round_update_plain(A, theta, delta, x, recv, coeff, diag, alive,
 def round_update(A: torch.Tensor, theta: torch.Tensor, delta: torch.Tensor,
                  x: torch.Tensor, recv: torch.Tensor, coeff: torch.Tensor,
                  diag: torch.Tensor, alive: torch.Tensor, alpha_t: float,
-                 use_recv: int, noise_self: bool):
-    """Fused noise-add + dense gossip mix + dual step + crash freeze.
+                 use_recv: int, noise_self: bool,
+                 csr: MixCSR | None = None):
+    """Fused noise-add + gossip mix + dual step + crash freeze.
 
     ``A`` is the (m, m) mixing matrix, ``recv`` the stale broadcast block
     read when ``use_recv`` is set (any (m, n) tensor otherwise), ``coeff``
     the clipped hinge coefficient (grad = coeff * x), ``alive`` 1.0 except
-    on frozen rows. Returns ``(theta_next, tilde)``.
+    on frozen rows. ``csr``, A's CSR form, selects the sparse path on the
+    card (m <= ``SPARSE_MAX_NODES``); without it the dense path runs.
+    Returns ``(theta_next, tilde)``.
     """
     m, n = _node_shape("theta", theta)
     dev = theta.device
@@ -179,21 +312,42 @@ def round_update(A: torch.Tensor, theta: torch.Tensor, delta: torch.Tensor,
         _check(name, t, (m, n), dev)
     for name, t in (("coeff", coeff), ("diag", diag), ("alive", alive)):
         _check(name, t, (m,), dev)
+    if csr is not None:
+        if not isinstance(csr, MixCSR):
+            raise TypeError(f"csr must be a MixCSR, got {type(csr).__name__}")
+        if csr.m != m:
+            raise ValueError(f"csr is for m={csr.m}, theta has m={m}")
+        if csr.device != dev:
+            raise ValueError(f"csr is on {csr.device}, expected {dev}")
     if not on_card(dev, "round_update"):
         return round_update_plain(A, theta, delta, x, recv, coeff, diag,
                                   alive, alpha_t, use_recv, noise_self)
+    if csr is not None and m > SPARSE_MAX_NODES:
+        raise ValueError(f"round_update's sparse path holds all m rows of a "
+                         f"column slab in a block: m <= {SPARSE_MAX_NODES}, "
+                         f"got m={m}")
     lib = library()
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     tilde = torch.empty((m, n), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        code = lib.rf_round_update(
-            A.data_ptr(), theta.data_ptr(), delta.data_ptr(), x.data_ptr(),
+    vec = _vec(n, theta, delta, x, recv)
+    flags = (float(alpha_t), int(bool(use_recv)), int(bool(noise_self)), m,
+             n, vec, out.data_ptr(), tilde.data_ptr())
+    rows = (theta.data_ptr(), delta.data_ptr(), x.data_ptr(),
             recv.data_ptr(), coeff.data_ptr(), diag.data_ptr(),
-            alive.data_ptr(), float(alpha_t), int(bool(use_recv)),
-            int(bool(noise_self)), m, n, out.data_ptr(), tilde.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            alive.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if csr is not None:
+            code = lib.rf_round_update_sparse(
+                csr.indptr.data_ptr(), csr.indices.data_ptr(),
+                csr.weights.data_ptr(), csr.indices.numel(), *rows, *flags,
+                stream)
+        else:
+            code = lib.rf_round_update(A.data_ptr(), *rows, *flags, stream)
     _raise_on_error(code, "round_update")
     round_update.launches += 1
+    if csr is not None:
+        round_update.sparse_launches += 1
     return out, tilde
 
 

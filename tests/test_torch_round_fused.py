@@ -12,6 +12,10 @@ cut back; the port's kernels mask ragged edges themselves.
 Tolerances: ``nnz`` is a count and must match exactly; float outputs within
 rtol=atol=1e-5, as tests/test_backends.py holds the Pallas kernels to their
 jnp oracles (the two sides reduce in different orders).
+
+``round_update``'s sparse path takes A's CSR form (`MixCSR`); its tests here
+check that form against the graph's dense A, exactly, and that the wrapper
+refuses a malformed one.
 """
 import numpy as np
 import pytest
@@ -21,6 +25,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import round_fused as jrf  # noqa: E402
+from repro_torch.core.graph import SparseGraph, ring_edges  # noqa: E402
 from repro_torch.kernels import round_fused as rf  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -59,19 +64,28 @@ def test_round_stats_matches_pallas(m, n, prox_l1):
     np.testing.assert_allclose(wsum.numpy(), np.asarray(want[4][:n]), **TOL)
 
 
+@pytest.mark.parametrize("mix", ["softmax", "ring"])
 @pytest.mark.parametrize("noise_self", [True, False])
 @pytest.mark.parametrize("use_recv", [0, 1])
 @pytest.mark.parametrize("m,n", [(4, 40), (10, 130)])
-def test_round_update_matches_pallas(m, n, use_recv, noise_self):
+def test_round_update_matches_pallas(m, n, use_recv, noise_self, mix):
+    """A dense softmax A (the dense path), or the main path's ring with its
+    CSR form handed to the wrapper (the sparse path on a card)."""
     rng = np.random.default_rng(7 * m + n)
     theta = rng.standard_normal((m, n)).astype(np.float32)
     delta = (0.1 * rng.standard_normal((m, n))).astype(np.float32)
     x = (rng.standard_normal((m, n)) / np.sqrt(n)).astype(np.float32)
     recv = rng.standard_normal((m, n)).astype(np.float32)
     coeff = rng.standard_normal(m).astype(np.float32)
-    logits = rng.standard_normal((m, m))
-    A = (np.exp(logits) / np.exp(logits).sum(1, keepdims=True)).astype(
-        np.float32)
+    csr = None
+    if mix == "ring":
+        A = ring_edges(m).to_dense()
+        csr = rf.sparse_mix(ring_edges(m), "cpu")
+        assert csr is not None
+    else:
+        logits = rng.standard_normal((m, m))
+        A = (np.exp(logits) / np.exp(logits).sum(1, keepdims=True)).astype(
+            np.float32)
     diag = np.ascontiguousarray(np.diagonal(A))
     alive = np.ones(m, np.float32)
     alive[1] = 0.0
@@ -84,7 +98,7 @@ def test_round_update_matches_pallas(m, n, use_recv, noise_self):
         noise_self, interpret=True)
     got_next, got_tilde = rf.round_update(
         _t(A), _t(theta), _t(delta), _t(x), _t(recv), _t(coeff), _t(diag),
-        _t(alive), 0.25, use_recv, noise_self)
+        _t(alive), 0.25, use_recv, noise_self, csr=csr)
     np.testing.assert_allclose(got_next.numpy(),
                                np.asarray(want_next[:m, :n]), **TOL)
     np.testing.assert_allclose(got_tilde.numpy(),
@@ -140,3 +154,86 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad, err):
     with pytest.raises(err):
         rf.round_update(A, theta, bad(torch.zeros((4, 8))), theta, theta,
                         v, v, v, 0.1, 0, True)
+
+
+def _irregular_graph() -> SparseGraph:
+    """Unsorted edges with duplicate pairs, an isolated row and rows of
+    different lengths."""
+    rng = np.random.default_rng(3)
+    dst = rng.integers(0, 9, 40)
+    dst = dst[dst != 4]
+    src = rng.integers(0, 9, dst.size)
+    w = rng.random(dst.size).astype(np.float32)
+    return SparseGraph(dst=np.concatenate([dst, dst[:5]]),
+                       src=np.concatenate([src, src[:5]]),
+                       weight=np.concatenate([w, w[:5]]), m=9)
+
+
+@pytest.mark.parametrize("graph", [ring_edges(1), ring_edges(2),
+                                   ring_edges(3), ring_edges(64),
+                                   _irregular_graph()],
+                         ids=["ring1", "ring2", "ring3", "ring64",
+                              "irregular"])
+def test_csr_form_holds_the_dense_non_zeros_in_column_order(graph):
+    csr = rf.MixCSR.from_graph(graph, "cpu")
+    A = graph.to_dense()
+    m = A.shape[0]
+    assert csr.m == m
+    assert (csr.indptr.dtype, csr.indices.dtype, csr.weights.dtype) == (
+        torch.int32, torch.int32, torch.float32)
+    ptr, idx, w = (t.numpy() for t in (csr.indptr, csr.indices,
+                                       csr.weights))
+    assert ptr[0] == 0 and ptr[-1] == idx.size
+    rebuilt = np.zeros_like(A)
+    for i in range(m):
+        cols = idx[ptr[i]:ptr[i + 1]]
+        assert np.all(np.diff(cols) > 0)          # ascending, merged
+        rebuilt[i, cols] = w[ptr[i]:ptr[i + 1]]
+    np.testing.assert_array_equal(rebuilt, A)     # exactly A's values
+
+
+def test_sparse_mix_takes_few_non_zeros_per_row_only():
+    ring = rf.sparse_mix(ring_edges(64), "cpu")
+    assert int(np.diff(ring.indptr.numpy()).max()) == 3
+    m = rf.SPARSE_MAX_ROW_NNZ + 1
+    full = SparseGraph(dst=np.repeat(np.arange(m), m),
+                       src=np.tile(np.arange(m), m),
+                       weight=np.full(m * m, 1.0 / m, np.float32), m=m)
+    assert rf.sparse_mix(full, "cpu") is None
+    assert rf.sparse_mix(ring_edges(rf.SPARSE_MAX_NODES + 1), "cpu") is None
+
+
+def _ring_csr_parts(m: int = 4):
+    csr = rf.MixCSR.from_graph(ring_edges(m), "cpu")
+    return csr.indptr, csr.indices, csr.weights
+
+
+@pytest.mark.parametrize("bad,err", [
+    (lambda p, i, w: (p, i.long(), w), TypeError),            # dtype
+    (lambda p, i, w: (p, i, w.double()), TypeError),
+    (lambda p, i, w: (p, i, w[:-1]), ValueError),             # shape
+    (lambda p, i, w: (p.reshape(1, -1), i, w), ValueError),
+    (lambda p, i, w: (p, i, w.to("meta")), ValueError),       # device
+    (lambda p, i, w: (torch.cat([p[:-1], p[-1:] - 1]), i, w),  # end != nnz
+     ValueError),
+    (lambda p, i, w: (p, i.flip(0).contiguous(), w), ValueError),  # order
+])
+def test_malformed_csr_is_refused(bad, err):
+    with pytest.raises(err):
+        rf.MixCSR(*bad(*_ring_csr_parts()))
+
+
+def test_round_update_refuses_a_csr_that_does_not_fit():
+    m, n = 4, 8
+    theta, v = torch.zeros((m, n)), torch.zeros(m)
+    A = torch.eye(m)
+    args = (A, theta, theta, theta, theta, v, v, v, 0.1, 0, True)
+    with pytest.raises(TypeError):            # not a MixCSR
+        rf.round_update(*args, csr=_ring_csr_parts(m))
+    with pytest.raises(ValueError):           # other m
+        rf.round_update(*args, csr=rf.MixCSR.from_graph(ring_edges(5),
+                                                        "cpu"))
+    with pytest.raises(ValueError):           # other device
+        rf.round_update(*(a.to("meta") if isinstance(a, torch.Tensor) else a
+                          for a in args),
+                        csr=rf.MixCSR.from_graph(ring_edges(m), "cpu"))
