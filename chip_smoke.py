@@ -26,11 +26,19 @@ Phases (any failure raises, and the script exits non-zero):
                node stack), 262,144 and 8, and ``hinge_grad`` at
                (B, n) = (64, 10,112) (one round of the ring, n zero-padded
                to a multiple of 128), (99,968, 10,112) (the whole paper
-               stream), (100, 384) (ragged) and (256, 65,536) (too wide to
-               stage in shared memory); time each at its first shape by the
+               stream), (100, 384) (ragged), (256, 65,536) (too wide to
+               stage in shared memory) and (1, 10,112) (the ops round's
+               per-node launch). ``hinge_grad`` at (1, 10,112), (64, 10,112)
+               and the whole stream must give the same bits on two calls;
+               the two small batches must take the slab path and put one
+               kernel and no memset on the card per call, the whole stream
+               the row path. Time each kernel at its first shape by the
                profiler's device time, beside its bound (``round_update``
                with the ring through the sparse path, and on a line before
-               it the dense path with the softmax A).
+               it the dense path with the softmax A); ``hinge_grad`` also
+               at (1, 10,112), and each small batch beside one
+               ``torch.mv`` of the same x and w (a floor: one cuBLAS pass
+               that reads x once).
 4. main path — ``repro_torch.run`` at the paper's scale (m=64, n=10,000,
                T=1,562 rounds = 100,000 samples, social_sparse, ring,
                Laplace eps=1 coordinate, L2 clip 1, alpha0=1, lam=1e-3),
@@ -47,7 +55,8 @@ Phases (any failure raises, and the script exits non-zero):
                must equal the simulator's (phase 4) exactly.
 8. ops       — one ring round at paper width through the pytree kernel ops:
                from a dist state at round 64, each node's hinge subgradient
-               by ``ops.hinge_grad``, clipped, then ``ops.pdomd_update`` on
+               by ``ops.hinge_grad`` (64 launches of B = 1, all on its slab
+               path), clipped, then ``ops.pdomd_update`` on
                the (rows, 128) tiles of theta~, its two ring neighbours and
                the gradient; held against the engine's own next state and
                primal (``GossipDP.update``, ``GossipDP.primal``).
@@ -96,7 +105,9 @@ PAPER_T = 100_000 // MAIN_M                  # 1,562 rounds
 N_PAD = -(-MAIN_N // 128) * 128              # 10,112: n to a multiple of 128
 PDOMD_ROWS = (MAIN_M * MAIN_N // 128, 262_144, 8)
 HINGE_SHAPES = ((MAIN_M, N_PAD), (PAPER_T * MAIN_M, N_PAD), (100, 384),
-                (256, 65_536))
+                (256, 65_536), (1, N_PAD))
+HINGE_SMALL = ((1, N_PAD), (MAIN_M, N_PAD))      # hinge_grad's slab path
+HINGE_BITWISE = (*HINGE_SMALL, (PAPER_T * MAIN_M, N_PAD))
 L2_BYTES = 50e6
 PROFILER_TRIES = 5          # profiler sessions tried before giving up
 SLEEP_CYCLES = 20_000_000   # ~11 ms at 1.98 GHz: the host queues meanwhile
@@ -559,13 +570,31 @@ def seed_kernel_phase(card: str) -> dict:
             x, y, w = _paper_stream_batch(dev)
         else:
             x, y, w = _hinge_inputs(B, n, seed=B + n, dev=dev)
+        slabs = hg.hinge_grad.slab_launches
         got = hg.hinge_grad(x, y, w)
+        path = "slab" if hg.hinge_grad.slab_launches > slabs else "row"
         err["hinge_grad"] = max(err["hinge_grad"], _compare(
             "hinge_grad", got, hg.hinge_grad_plain(x, y, w), f"B={B} n={n}"))
         if n == N_PAD:
             require(not bool(got[1][MAIN_N:].any()),
                     f"hinge_grad at B={B}: zero-padded columns got a "
                     "non-zero gradient")
+        checked = ""
+        if (B, n) in HINGE_BITWISE:
+            require(path == ("slab" if (B, n) in HINGE_SMALL else "row"),
+                    f"hinge_grad at B={B} n={n} took the {path} path")
+            again = hg.hinge_grad(x, y, w)
+            require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                    f"hinge_grad: two calls on one input differ at B={B} "
+                    f"n={n}")
+            checked = "; two calls equal bit for bit"
+            del again
+        if (B, n) in HINGE_SMALL:
+            names = _device_events(lambda: hg.hinge_grad(x, y, w))
+            require(len(names) == 5 and not any("emset" in e for e in names),
+                    f"hinge_grad at B={B}: 5 calls put {len(names)} device "
+                    f"events on the card: {sorted(set(names))}")
+            checked += "; one kernel per call, no memset"
         active = float((got[2] < 1).float().mean())
         if B == PAPER_T * MAIN_M:       # the one-read design's real size
             full = dict(
@@ -584,7 +613,7 @@ def seed_kernel_phase(card: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         log(f"hinge_grad agrees with its plain version at B={B}, n={n} "
-            f"(active share {active:.3f})")
+            f"(active share {active:.3f}, {path} path{checked})")
 
     results = {}
     rows = PDOMD_ROWS[0]
@@ -607,9 +636,43 @@ def seed_kernel_phase(card: str) -> dict:
         err["hinge_grad"], SEED_SOURCES["hinge_grad"], card)
     results["hinge_grad"].update(full)
     del sets
+    results["hinge_grad"].update(_hinge_small_timing(
+        err["hinge_grad"], card))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return results
+
+
+def _hinge_small_timing(err: float, card: str) -> dict:
+    """``hinge_grad``'s small batches: at (1, 10,112), the ops round's
+    launch shape, its device time, bound and plain version (the ``b1_*``
+    keys of the hinge_grad entry), and at both small batches the device
+    time of one ``torch.mv(x, w)`` (a floor, not the function: it reads x
+    once and computes only x @ w)."""
+    import torch
+    from repro_torch.kernels import hinge_grad as hg
+    dev = torch.device("cuda")
+    out = {}
+    for B, n in HINGE_SMALL:
+        nbytes = _work("hinge_grad", B, n)[0]
+        sets = [_hinge_inputs(B, n, seed=s, dev=dev)
+                for s in range(max(10, math.ceil(3 * L2_BYTES / nbytes)))]
+        key = "" if B == MAIN_M else f"b{B}_"
+        if B != MAIN_M:
+            entry = _measure(
+                "hinge_grad",
+                [functools.partial(hg.hinge_grad, *a) for a in sets],
+                [functools.partial(hg.hinge_grad_plain, *a) for a in sets],
+                B, n, err, SEED_SOURCES["hinge_grad"], card)
+            out.update({key + k: entry[k] for k in ("ms", "plain_ms",
+                                                    "bound_ms", "call_ms")})
+        mv = _device_ms(_rotate([functools.partial(torch.mv, a[0], a[2])
+                                 for a in sets]))
+        out[key + "mv_floor_ms"] = mv
+        log(f"torch.mv(x, w) at {B}x{n}: {mv * 1e3:.2f} us device time "
+            f"(hinge_grad's floor) | {card}")
+        del sets
+    return out
 
 
 # -- 4-6. the port's run -----------------------------------------------------
@@ -849,15 +912,21 @@ def ops_phase(card: str) -> dict:
     w_new = ops.tiles_to_tree(w_t, like)["w"]
     launches = {"hinge_grad": hg.hinge_grad.launches,
                 "pdomd_update": pu.pdomd_update.launches}
+    slab = hg.hinge_grad.slab_launches
     d = {"loss": float((loss - loss_e).abs().max()),
          "grad": float((grad[:, :MAIN_N] - grad_e).abs().max()),
          "theta_next": float((theta_new - nxt.theta["w"]).abs().max()),
          "w_next": float((w_new - gdp.primal(nxt)["w"]).abs().max())}
     log(f"ops path: one ring round at m={MAIN_M}, n={MAIN_N} "
-        f"({tuple(th_t.shape)} tiles), round {t + 1}; launches {launches}; "
+        f"({tuple(th_t.shape)} tiles), round {t + 1}; launches {launches} "
+        f"(hinge_grad's slab path {slab}); "
         f"max abs differences from the engine's round: {d} | {card}")
-    require(launches == {"hinge_grad": MAIN_M, "pdomd_update": 1},
-            f"ops path launched {launches}")
+    require(launches == {"hinge_grad": MAIN_M, "pdomd_update": 1}
+            and slab == MAIN_M,
+            f"ops path launched {launches} ({slab} on hinge_grad's slab "
+            f"path), expected {MAIN_M} hinge_grad launches, all on the slab "
+            "path, and one pdomd_update")
+    launches["hinge_grad_slab"] = slab
     for k, v in d.items():
         require(v <= FLOAT_TOL, f"ops path: {k} off by {v}")
     return launches
@@ -886,6 +955,7 @@ def main() -> int:
             entry["dist_launches"] = dist_launches[name]
     kernels["round_update"]["sparse_launches"] = launches[
         "round_update_sparse"]
+    kernels["hinge_grad"]["slab_launches"] = launches["hinge_grad_slab"]
     log(smi)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

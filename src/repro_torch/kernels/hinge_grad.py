@@ -13,8 +13,15 @@ and casts the inputs to float32, as the reference does (bf16 included).
 Given CPU tensors it computes the plain PyTorch version
 (`hinge_grad_plain`, beside it); given CUDA tensors it launches the kernels
 on the current stream and raises if a launch failed, never falling back.
-``hinge_grad.launches`` counts calls that launched (one call launches the
-row kernel and the kernel that sums its per-block partials).
+
+The kernel library picks one of two paths from B, n and the card
+(``hg_plan``, asked once per device, B and n and kept here): batches of up
+to 128 rows take the slab path, one cooperative launch whose grid barrier
+counts on an int32 counter per device and stream
+(`launch.stream_counter`); larger ones the row path, a row kernel and a
+second kernel that sums its per-block partials. ``hinge_grad.launches``
+counts calls that launched, ``hinge_grad.slab_launches`` those that took
+the slab path.
 """
 from __future__ import annotations
 
@@ -24,13 +31,22 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.launch import aligned, check, on_card
+from repro_torch.kernels.launch import aligned, check, on_card, stream_counter
 
 __all__ = ["hinge_grad", "hinge_grad_plain", "reset_launches", "library",
            "SOURCE", "LANE"]
 
 SOURCE = "hinge_grad.cu"
 LANE = 128
+_SLAB_PATH = 2         # _Plan.path of the slab path (kPathSlabs)
+
+
+class _Plan(ctypes.Structure):
+    """``HgPlan`` of the kernel library: the path and launch shape."""
+    _fields_ = [("path", ctypes.c_int32), ("unit", ctypes.c_int32),
+                ("width", ctypes.c_int32), ("grid", ctypes.c_int32),
+                ("block", ctypes.c_int32), ("pad", ctypes.c_int32),
+                ("smem", ctypes.c_int64), ("scratch", ctypes.c_int64)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -38,19 +54,31 @@ def library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = build.load(SOURCE)
     P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    IP = ctypes.POINTER(ctypes.c_int)
-    lib.hg_plan.argtypes = [I64, I, IP, IP, IP, ctypes.POINTER(I64)]
+    lib.hg_plan.argtypes = [I64, I, ctypes.POINTER(_Plan)]
     lib.hg_plan.restype = I
-    lib.hg_hinge_grad.argtypes = [P, P, P, I64, I, I, I, I, I64, P, P, P, P,
-                                  P]
+    lib.hg_hinge_grad.argtypes = [P, P, P, I64, I, ctypes.POINTER(_Plan), P,
+                                  P, P, P, P, P]
     lib.hg_hinge_grad.restype = I
     lib.hg_error_string.argtypes = [I]
     lib.hg_error_string.restype = ctypes.c_char_p
     return lib
 
 
+@functools.lru_cache(maxsize=1024)
+def _plan(index: int, B: int, n: int) -> _Plan:
+    """``hg_plan`` for a (B, n) batch on CUDA device ``index``. It depends
+    on B, n and the device alone, so it is asked once and kept."""
+    lib = library()
+    out = _Plan()
+    with torch.cuda.device(index):
+        code = lib.hg_plan(B, n, ctypes.byref(out))
+    check(code, "hinge_grad", lib.hg_error_string)
+    return out
+
+
 def reset_launches() -> None:
     hinge_grad.launches = 0
+    hinge_grad.slab_launches = 0
 
 
 def hinge_grad_plain(x, y, w):
@@ -83,23 +111,24 @@ def hinge_grad(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor):
         return hinge_grad_plain(x, y, w)
     x, y, w = (aligned(t.to(torch.float32).contiguous()) for t in (x, y, w))
     lib = library()
-    rows, grid, staged = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    smem = ctypes.c_int64()
+    p = _plan(dev.index, B, n)
+    part = torch.empty(p.scratch, dtype=torch.float32, device=dev)
+    # one allocation for the outputs; g first, so it is 16-byte aligned
+    out = torch.empty(n + 2 * B, dtype=torch.float32, device=dev)
+    g, loss, margin = out[:n], out[n:n + B], out[n + B:]
     with torch.cuda.device(dev):
-        code = lib.hg_plan(B, n, ctypes.byref(rows), ctypes.byref(grid),
-                           ctypes.byref(staged), ctypes.byref(smem))
-        check(code, "hinge_grad", lib.hg_error_string)
-        part = torch.empty((grid.value, n), dtype=torch.float32, device=dev)
-        loss, margin = (torch.empty(B, dtype=torch.float32, device=dev)
-                        for _ in range(2))
-        g = torch.empty(n, dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev)
+        slab = p.path == _SLAB_PATH
+        counter = stream_counter("hinge_grad", dev, stream).data_ptr() \
+            if slab else None
         code = lib.hg_hinge_grad(
-            x.data_ptr(), y.data_ptr(), w.data_ptr(), B, n, rows.value,
-            grid.value, staged.value, smem.value, part.data_ptr(),
+            x.data_ptr(), y.data_ptr(), w.data_ptr(), B, n, ctypes.byref(p),
+            part.data_ptr(), counter,
             loss.data_ptr(), margin.data_ptr(), g.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            stream.cuda_stream)
     check(code, "hinge_grad", lib.hg_error_string)
     hinge_grad.launches += 1
+    hinge_grad.slab_launches += int(slab)
     return loss, g, margin
 
 

@@ -3,8 +3,10 @@
 A wrapper given CPU tensors computes its kernel's plain PyTorch version
 (that is how the CPU tests run); given CUDA tensors it launches the kernel
 or raises, and never falls back. `on_card` makes that choice, `check`
-turns a launch's CUDA error code into an exception, and `aligned` hands a
-kernel that loads 16 bytes at a time a 16-byte-aligned tensor.
+turns a launch's CUDA error code into an exception, `aligned` hands a
+kernel that loads 16 bytes at a time a 16-byte-aligned tensor, and
+`stream_counter` gives a kernel that synchronises its blocks through device
+memory its counter word.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ from typing import Callable
 
 import torch
 
-__all__ = ["on_card", "check", "aligned"]
+__all__ = ["on_card", "check", "aligned", "stream_counter"]
 
 
 def on_card(device: torch.device, name: str) -> bool:
@@ -36,3 +38,20 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when its data is 16-byte aligned, else a copy (fresh
     allocations are)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+_COUNTERS: dict[tuple[str, int, int], torch.Tensor] = {}
+
+
+def stream_counter(kernel: str, dev: torch.device, stream) -> torch.Tensor:
+    """The int32 counter of ``kernel``'s cross-block synchronisation on this
+    device and stream: zeroed once when first used; every launch of the
+    kernel leaves it ready for the next (its source says how), so no call
+    pays a memset. One per stream, so concurrent calls on two streams never
+    share one; calls on one stream run in order."""
+    key = (kernel, dev.index, stream.cuda_stream)
+    counter = _COUNTERS.get(key)
+    if counter is None:
+        counter = _COUNTERS[key] = torch.zeros(1, dtype=torch.int32,
+                                               device=dev)
+    return counter

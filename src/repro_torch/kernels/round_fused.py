@@ -20,9 +20,9 @@ and the hybrid backend mixes with torch ops between ``round_stats`` and
 
 ``round_stats`` is one launch: each block stages its slab of theta and x
 with all loads in flight at once, and the last block to finish (an int32
-ticket counter, one per device and stream, owned here and reset by that
-block) sums every block's per-node partials in a fixed order — no float
-atomics, bit-stable from run to run.
+ticket counter, one per device and stream, from `launch.stream_counter`,
+reset by that block) sums every block's per-node partials in a fixed order
+— no float atomics, bit-stable from run to run.
 
 ``round_update`` mixes one of two ways. Given ``csr`` (a `MixCSR`, A's
 non-zeros in ascending column order; `sparse_mix` builds one from a
@@ -54,7 +54,7 @@ import torch
 
 from repro_torch.core.prox import soft_threshold
 from repro_torch.kernels import build
-from repro_torch.kernels.launch import check, on_card
+from repro_torch.kernels.launch import check, on_card, stream_counter
 
 __all__ = ["round_stats", "round_update", "dual_step", "round_stats_plain",
            "round_update_plain", "dual_step_plain", "reset_launches",
@@ -139,22 +139,6 @@ def reset_launches() -> None:
 # round_stats
 # ---------------------------------------------------------------------------
 
-_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
-
-
-def _stats_counter(dev: torch.device, stream) -> torch.Tensor:
-    """The int32 ticket counter of ``round_stats``' last-block finalize on
-    this device and stream: zeroed once when first used, then reset to 0 by
-    the last block of every launch. One per stream, so concurrent calls on
-    two streams never share one; calls on one stream run in order."""
-    key = (dev.index, stream.cuda_stream)
-    counter = _COUNTERS.get(key)
-    if counter is None:
-        counter = _COUNTERS[key] = torch.zeros(1, dtype=torch.int32,
-                                               device=dev)
-    return counter
-
-
 def round_stats_plain(theta, x, lam_t, m_real, *, prox_l1: bool = True):
     """Plain PyTorch version of `round_stats` (same outputs and types)."""
     w = soft_threshold(theta, lam_t) if prox_l1 else theta
@@ -191,8 +175,8 @@ def round_stats(theta: torch.Tensor, x: torch.Tensor, lam_t: float,
         code = lib.rf_round_stats(
             theta.data_ptr(), x.data_ptr(), float(lam_t), float(m_real),
             int(bool(prox_l1)), m, n, vec, scratch.data_ptr(),
-            _stats_counter(dev, stream).data_ptr(), dot.data_ptr(),
-            xsq.data_ptr(), nnz.data_ptr(), wbdot.data_ptr(),
+            stream_counter("round_stats", dev, stream).data_ptr(),
+            dot.data_ptr(), xsq.data_ptr(), nnz.data_ptr(), wbdot.data_ptr(),
             wsum.data_ptr(), stream.cuda_stream)
     _raise_on_error(code, "round_stats")
     round_stats.launches += 1

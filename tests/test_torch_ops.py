@@ -172,9 +172,15 @@ def test_pdomd_update_on_tiles_does_the_engines_ring_round():
 
 # -- hinge_grad --------------------------------------------------------------
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,n", [(8, 128), (32, 256), (128, 1024),
-                                 (100, 384)])
+# every earlier (B, n) in both dtypes; then the small batches the card's
+# slab path takes: one row (the ops round's per-node launch, at the paper's
+# padded width too) and one ring round's 64 rows at that width
+@pytest.mark.parametrize("B,n,dtype", [
+    *((B, n, dtype) for B, n in ((8, 128), (32, 256), (128, 1024), (100, 384))
+      for dtype in ("float32", "bfloat16")),
+    (1, 128, "float32"), (1, 128, "bfloat16"),
+    (1, 10_112, "float32"), (1, 10_112, "bfloat16"),
+    (64, 10_112, "float32")])
 def test_hinge_grad_matches_pallas(B, n, dtype):
     rng = np.random.default_rng(B + n)
     xj, xt = _pair(rng.standard_normal((B, n)) / np.sqrt(n), dtype)
@@ -206,12 +212,13 @@ def test_hinge_grad_matches_torch_autograd():
                                atol=1e-5)
 
 
-def test_hinge_grad_padded_columns_get_exactly_zero():
+@pytest.mark.parametrize("B", [50, 1])
+def test_hinge_grad_padded_columns_get_exactly_zero(B):
     rng = np.random.default_rng(1)
-    x = np.zeros((50, 256), np.float32)
-    x[:, :200] = rng.standard_normal((50, 200))
+    x = np.zeros((B, 256), np.float32)
+    x[:, :200] = rng.standard_normal((B, 200))
     _, g, _ = ops.hinge_grad(torch.tensor(x),
-                             torch.tensor(np.sign(rng.standard_normal(50)),
+                             torch.tensor(np.sign(rng.standard_normal(B)),
                                           dtype=torch.float32),
                              torch.zeros(256))
     assert g[:200].abs().min() > 0 and not g[200:].any()
