@@ -17,9 +17,12 @@ Phases (any failure raises, and the script exits non-zero):
                (m=64, n=10,000), the fused mode's largest (m=1024,
                n=65,536) and a ragged one (m=7, n=1,000) — ``round_update``
                on both paths: the main path's ring through its CSR form
-               (sparse) and a dense softmax A (dense). With the ring A the
-               sparse path must equal the dense one bit for bit at
-               (64, 10,000) and (7, 1,000); two calls of a redesigned kernel
+               (sparse) and a dense softmax A (dense), and at the main
+               path's shape the hypercube and random (seed 0) A of Fig. 3
+               through their CSR forms. With the ring A the sparse path
+               must equal the dense one bit for bit at (64, 10,000) and
+               (7, 1,000), with the hypercube and random A at (64, 10,000);
+               two calls of a redesigned kernel
                on one input must agree bit for bit; ``round_stats`` must put
                one kernel and no memset on the card per call. Hold
                ``pdomd_update`` at (rows, 128) for rows = 5,000 (the paper's
@@ -34,8 +37,9 @@ Phases (any failure raises, and the script exits non-zero):
                kernel and no memset on the card per call, the whole stream
                the row path. Time each kernel at its first shape by the
                profiler's device time, beside its bound (``round_update``
-               with the ring through the sparse path, and on a line before
-               it the dense path with the softmax A); ``hinge_grad`` also
+               with the ring through the sparse path, and on lines before
+               it the dense path with the softmax A and the sparse path
+               with the hypercube and random A); ``hinge_grad`` also
                at (1, 10,112), and each small batch beside one
                ``torch.mv`` of the same x and w (a floor: one cuBLAS pass
                that reads x once).
@@ -60,6 +64,22 @@ Phases (any failure raises, and the script exits non-zero):
                the (rows, 128) tiles of theta~, its two ring neighbours and
                the gradient; held against the engine's own next state and
                primal (``GossipDP.update``, ``GossipDP.primal``).
+9. topology  — the paper's Fig. 3 axis at its scale (the main path's spec
+               with another mixer; fused backend, auto mode, regret on):
+               hypercube, random and an 8x8 torus (``mixer="sparse"``)
+               must take round_update's sparse path every round, a complete
+               ``dense`` mixer its dense path, complete and time_varying
+               the hybrid path (``dual_step`` every round). Each run's
+               rounds/s, accuracy and regret are logged, its first 64
+               rounds held against the reference backend; hypercube and
+               random also run on the dist engine, equal to the sim run
+               field by field.
+10. stages   — 64 rounds each at the paper's width: the Gaussian
+               mechanism and the drift (both modes), heterogeneous and
+               bursty streams on the fused path, per-edge delays
+               (``delay_dist``) on the hybrid path, each held against the
+               reference backend; the tg and rda rules, the value clipper
+               and the group prox on the reference backend (finite).
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line (time,
 bound, plain-version time and launches of every kernel), and last
@@ -88,6 +108,10 @@ FLOAT_TOL = 5e-6            # the port's float contract between backends
 MAIN_M, MAIN_N = 64, 10_000
 KERNEL_SHAPES = ((MAIN_M, MAIN_N), (1024, 65_536), (7, 1_000))
 BITWISE_SHAPES = ((MAIN_M, MAIN_N), (7, 1_000))   # sparse == dense, ring A
+# the fixed graphs of the paper's Fig. 3 beside the ring whose CSR form
+# round_update's sparse path takes at the main path's shape (hypercube: 7
+# non-zeros a row; random, seed 0: 6-7, ragged)
+FIG3_GRAPHS = ("hypercube", "random")
 UPDATE_FLAGS = tuple(itertools.product((0, 1), (True, False)))
 SOURCE = "src/repro_torch/csrc/round_fused.cu"
 ROUND_KERNELS = ("round_stats", "round_update", "dual_step")
@@ -95,6 +119,8 @@ REPLACES = {
     "round_stats": "src/repro/kernels/round_fused.py:130",
     "round_update": "src/repro/kernels/round_fused.py:194",
     "round_update_dense": "src/repro/kernels/round_fused.py:194",
+    "round_update_hypercube": "src/repro/kernels/round_fused.py:194",
+    "round_update_random": "src/repro/kernels/round_fused.py:194",
     "dual_step": "src/repro/kernels/round_fused.py:249",
     "pdomd_update": "src/repro/kernels/pdomd_update.py:49",
     "hinge_grad": "src/repro/kernels/hinge_grad.py:57",
@@ -166,11 +192,18 @@ def build_phase() -> float:
 
 # -- 3. kernels --------------------------------------------------------------
 
+def _graph(name: str, m: int):
+    """The fixed graph ``name`` at m nodes (random: seed 0)."""
+    from repro_torch.core.graph import SparseGraph, ring_edges
+    return ring_edges(m) if name == "ring" else SparseGraph.make(name, m,
+                                                                 seed=0)
+
+
 def _inputs(m: int, n: int, seed: int, dev):
-    """Random round inputs, a dense softmax A and the main path's ring
-    (its dense A, self weights and CSR form)."""
+    """Random round inputs, a dense softmax A and, per fixed graph, its
+    dense A, self weights and CSR form: the main path's ring at every
+    shape, the Fig. 3 hypercube and random graphs at the main path's."""
     import torch
-    from repro_torch.core.graph import ring_edges
     from repro_torch.kernels.round_fused import MixCSR
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
@@ -181,52 +214,70 @@ def _inputs(m: int, n: int, seed: int, dev):
     A = torch.softmax(randn(m, m), dim=1)   # dense row-stochastic mix
     alive = torch.ones(m, device=dev)
     alive[m // 2] = 0.0                      # one crash-frozen row
-    ring = ring_edges(m)
+    graphs = {}
+    for name in ("ring",) + (FIG3_GRAPHS if (m, n) == (MAIN_M, MAIN_N)
+                             else ()):
+        graph = _graph(name, m)
+        graphs[name] = (torch.as_tensor(graph.to_dense(), device=dev),
+                        torch.as_tensor(graph.diag(), device=dev),
+                        MixCSR.from_graph(graph, dev))
     return dict(theta=randn(m, n), x=randn(m, n) / math.sqrt(n),
                 delta=0.1 * randn(m, n), recv=randn(m, n),
                 mixed=randn(m, n), coeff=randn(m), A=A,
-                diag=A.diagonal().contiguous(), alive=alive,
-                ring_A=torch.as_tensor(ring.to_dense(), device=dev),
-                ring_diag=torch.as_tensor(ring.diag(), device=dev),
-                ring_csr=MixCSR.from_graph(ring, dev))
+                diag=A.diagonal().contiguous(), alive=alive, graphs=graphs)
 
 
 def _update_args(d, mix: str, use_recv=0, noise_self=True) -> tuple:
-    """round_update's positional arguments with the ring's or the softmax
-    A."""
-    A, diag = (d["ring_A"], d["ring_diag"]) if mix == "ring" \
+    """round_update's positional arguments with a fixed graph's A (by
+    name) or the softmax A."""
+    A, diag = d["graphs"][mix][:2] if mix in d["graphs"] \
         else (d["A"], d["diag"])
     return (A, d["theta"], d["delta"], d["x"], d["recv"], d["coeff"], diag,
             d["alive"], 0.25, use_recv, noise_self)
 
 
+def _sparse_call(rf, d, mix: str, use_recv=0, noise_self=True):
+    """(kernel call, plain call) of round_update with a fixed graph's A
+    through the sparse path (its CSR form)."""
+    args = _update_args(d, mix, use_recv, noise_self)
+    csr = d["graphs"][mix][2]
+    return (lambda: rf.round_update(*args, csr=csr),
+            lambda: rf.round_update_plain(*args))
+
+
 def _calls(rf, d, use_recv=0, noise_self=True):
     """(kernel call, plain call) per kernel on one input set:
     ``round_update`` mixes with the main path's ring through the sparse
-    path (its CSR form), ``round_update_dense`` with the softmax A through
-    the dense path."""
+    path (its CSR form), ``round_update_<graph>`` with the Fig. 3 graphs
+    the same way where the input set has them, ``round_update_dense`` with
+    the softmax A through the dense path."""
     stats = (d["theta"], d["x"], 0.5, d["theta"].shape[0])
-    ring = _update_args(d, "ring", use_recv, noise_self)
     dense = _update_args(d, "softmax", use_recv, noise_self)
     dual = (d["mixed"], d["x"], d["theta"], d["coeff"], d["alive"], 0.25)
-    return {
+    calls = {
         "round_stats": (lambda: rf.round_stats(*stats),
                         lambda: rf.round_stats_plain(*stats)),
-        "round_update": (lambda: rf.round_update(*ring, csr=d["ring_csr"]),
-                         lambda: rf.round_update_plain(*ring)),
+        "round_update": _sparse_call(rf, d, "ring", use_recv, noise_self),
         "round_update_dense": (lambda: rf.round_update(*dense),
                                lambda: rf.round_update_plain(*dense)),
         "dual_step": (lambda: rf.dual_step(*dual),
                       lambda: rf.dual_step_plain(*dual)),
     }
+    for name in FIG3_GRAPHS:
+        if name in d["graphs"]:
+            calls[f"round_update_{name}"] = _sparse_call(rf, d, name,
+                                                         use_recv, noise_self)
+    return calls
 
 
 # outputs that are sums over a node's row or a column (round_stats' four
 # float outputs; round_update's next, through A @ r) — see _compare
 REDUCED = {"round_stats": (0, 1, 3, 4), "round_update": (0,),
-           "round_update_dense": (0,), "dual_step": (), "pdomd_update": (),
+           "round_update_dense": (0,), "round_update_hypercube": (0,),
+           "round_update_random": (0,), "dual_step": (), "pdomd_update": (),
            "hinge_grad": (0, 1, 2)}
-REDESIGNED = ("round_stats", "round_update", "round_update_dense")
+REDESIGNED = ("round_stats", "round_update", "round_update_dense",
+              "round_update_hypercube", "round_update_random")
 
 
 def _compare(name, got, want, where) -> float:
@@ -397,7 +448,9 @@ def _measure(name: str, kern, plain, m: int, n: int, err: float,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=None, call_ms=call_ms)
     label = {"round_update": "round_update (ring A, sparse path)",
-             "round_update_dense": "round_update (softmax A, dense path)"}
+             "round_update_dense": "round_update (softmax A, dense path)",
+             **{f"round_update_{g}": f"round_update ({g} A, sparse path, "
+                f"{nnz} non-zeros)" for g in FIG3_GRAPHS}}
     log(f"kernel {label.get(name, name)}: {ms * 1e3:.2f} us device time "
         f"(median) at "
         f"{m}x{n} | {nbytes / 1e6:.2f} MB, bound {bound_ms * 1e3:.2f} us at "
@@ -424,12 +477,15 @@ def kernel_checks(card: str) -> dict:
     """Hold each round kernel against its plain version at every shape of
     KERNEL_SHAPES and flag set; the redesigned ones also against a second
     call on the same input (bit for bit: no float atomics), and the sparse
-    ``round_update`` against the dense one with the ring A (bit for bit).
+    ``round_update`` against the dense one with each fixed graph's A (bit
+    for bit): the ring at BITWISE_SHAPES, the Fig. 3 hypercube and random
+    graphs at the main path's shape.
     Returns each kernel's largest difference from its plain version."""
     import torch
     from repro_torch.kernels import round_fused as rf
     dev = torch.device("cuda")
-    errs = {k: 0.0 for k in (*ROUND_KERNELS, "round_update_dense")}
+    errs = {k: 0.0 for k in (*ROUND_KERNELS, "round_update_dense",
+                             *(f"round_update_{g}" for g in FIG3_GRAPHS))}
     for m, n in KERNEL_SHAPES:
         d = _inputs(m, n, seed=m * 7919 + n, dev=dev)
         for use_recv, noise_self in UPDATE_FLAGS:
@@ -449,19 +505,24 @@ def kernel_checks(card: str) -> dict:
                                 for a, b in zip(got, again)),
                             f"{name}: two calls on one input differ at "
                             f"{where}")
-            if (m, n) in BITWISE_SHAPES:
-                sparse = calls["round_update"][0]()
-                dense = rf.round_update(*_update_args(d, "ring", use_recv,
+            bitwise = list(d["graphs"]) if (m, n) in BITWISE_SHAPES else []
+            for graph in bitwise:
+                sparse = _sparse_call(rf, d, graph, use_recv, noise_self)[0]()
+                dense = rf.round_update(*_update_args(d, graph, use_recv,
                                                       noise_self))
                 require(all(torch.equal(a, b) for a, b in zip(sparse, dense)),
                         f"round_update: sparse and dense paths differ with "
-                        f"the ring A at {where}")
+                        f"the {graph} A at {where}")
+        nnz = {g: int(torch.diff(f[2].indptr).max()) for g, f in
+               d["graphs"].items()}
         del d, calls
         torch.cuda.synchronize()
         log(f"kernels agree with their plain versions at m={m}, n={n}"
-            + ("; round_update sparse == dense bit for bit with the ring A"
-               if (m, n) in BITWISE_SHAPES else "")
+            + (f"; round_update sparse == dense bit for bit with the "
+               f"{', '.join(bitwise)} A (at most {nnz} non-zeros a row)"
+               if bitwise else "")
             + "; two calls of each redesigned kernel equal bit for bit")
+    _mixers_match_the_kernel(rf, dev)
     d = _inputs(MAIN_M, MAIN_N, seed=1, dev=dev)
     calls = _calls(rf, d)
     for name in ("round_stats", "round_update"):
@@ -475,6 +536,35 @@ def kernel_checks(card: str) -> dict:
     return errs
 
 
+def _mixers_match_the_kernel(rf, dev) -> None:
+    """The reference backend's torch-op mixers against round_update's
+    sparse-path mix (no noise, no step: out = A @ r), at the main path's
+    shape: the edge-list mixer and the dense mixer must both equal it bit
+    for bit on every fixed Fig. 3 graph and the torus, so the two
+    backends' iterates part only by the clip and the dual step."""
+    import torch
+    from repro_torch.api import MIXERS
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    r = torch.randn(MAIN_M, MAIN_N, generator=g, device=dev)
+    zeros = torch.zeros_like(r)
+    zm, ones = torch.zeros(MAIN_M, device=dev), torch.ones(MAIN_M, device=dev)
+    for name in ("torus", *FIG3_GRAPHS, "ring"):
+        graph = _graph(name, MAIN_M)
+        A = torch.as_tensor(graph.to_dense(), device=dev)
+        diag = torch.as_tensor(graph.diag(), device=dev)
+        kern = rf.round_update(A, r, zeros, zeros, r, zm, diag, ones, 0.0, 0,
+                               True, csr=rf.MixCSR.from_graph(graph, dev))[0]
+        for mixer in ("sparse", "dense"):
+            got = MIXERS.build(mixer, {"topology": name}, m=MAIN_M,
+                               seed=0).apply(r, 0)
+            require(torch.equal(got, kern), f"the {mixer} mixer's {name} "
+                    f"mix differs from round_update's at "
+                    f"{int((got != kern).sum())} coordinates")
+    log("the sparse and dense mixers equal round_update's mix bit for bit "
+        "with the torus, hypercube, random and ring A")
+
+
 def kernel_phase(card: str):
     """Hold each kernel against its plain version; time it. Returns the
     per-kernel measurements (launch counts are filled in later)."""
@@ -486,19 +576,22 @@ def kernel_phase(card: str):
     # time at the main path's shape, rotating over input sets that together
     # exceed the 50 MB L2, so every launch reads its inputs from HBM
     sets = [_inputs(MAIN_M, MAIN_N, seed=s, dev=dev) for s in range(10)]
-    ring_nnz = sets[0]["ring_csr"].indices.numel()
+    nnz = {f"round_update_{g}" if g != "ring" else "round_update":
+           f[2].indices.numel() for g, f in sets[0]["graphs"].items()}
     results = {}
     for name in ("round_stats", "round_update_dense", "round_update",
-                 "dual_step"):
+                 *(f"round_update_{g}" for g in FIG3_GRAPHS), "dual_step"):
         results[name] = _measure(
             name, [_calls(rf, d)[name][0] for d in sets],
             [_calls(rf, d)[name][1] for d in sets], MAIN_M, MAIN_N,
-            errs[name], SOURCE, card,
-            nnz=ring_nnz if name == "round_update" else None)
+            errs[name], SOURCE, card, nnz=nnz.get(name))
+    keep = ("ms", "plain_ms", "bound_ms", "call_ms", "max_abs_err")
     dense = results.pop("round_update_dense")
-    results["round_update"]["dense_path"] = {
-        k: dense[k] for k in ("ms", "plain_ms", "bound_ms", "call_ms",
-                              "max_abs_err")}
+    results["round_update"]["dense_path"] = {k: dense[k] for k in keep}
+    for g in FIG3_GRAPHS:
+        entry = results.pop(f"round_update_{g}")
+        results["round_update"][f"{g}_sparse"] = {
+            **{k: entry[k] for k in keep}, "nnz": nnz[f"round_update_{g}"]}
     del sets
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -711,6 +804,26 @@ def _hold(ref, got, what: str, card: str) -> None:
         require(d[f] <= FLOAT_TOL, f"{what}: {f} off by {d[f]}")
 
 
+def _launches() -> dict:
+    """The round kernels' launch counts, round_update's sparse path apart."""
+    from repro_torch.kernels import round_fused as rf
+    out = {k: getattr(rf, k).launches for k in ROUND_KERNELS}
+    out["round_update_sparse"] = rf.round_update.sparse_launches
+    return out
+
+
+def _require_path(launches: dict, path: str, T: int, what: str) -> None:
+    """The kernels a run of T rounds must have launched on its path: every
+    round through round_stats, then round_update on its sparse (CSR) or
+    dense path, or dual_step after a torch-op mix (hybrid)."""
+    want = {"round_stats": T,
+            "round_update": T if path in ("sparse", "dense") else 0,
+            "round_update_sparse": T if path == "sparse" else 0,
+            "dual_step": T if path == "hybrid" else 0}
+    require(launches == want, f"{what}: launches {launches}, expected "
+            f"{want} on the {path} path")
+
+
 def main_path(card: str):
     import numpy as np
     from repro_torch import ExecConfig, run
@@ -725,16 +838,11 @@ def main_path(card: str):
     t0 = time.perf_counter()
     res = run(spec, exec=cfg, device=DEVICE)
     wall = time.perf_counter() - t0
-    launches = {k: getattr(rf, k).launches for k in ROUND_KERNELS}
-    sparse = rf.round_update.sparse_launches
+    launches = _launches()
     log(f"main path: {T} rounds, run() {wall:.2f} s with regret; round "
         f"loop {res.wall_clock:.3f} s = {res.rounds_per_sec:.1f} rounds/s; "
-        f"launches {launches}, round_update's sparse path {sparse} | {card}")
-    require(launches["round_stats"] == T and launches["round_update"] == T
-            and sparse == T,
-            f"fused kernels launched {launches} ({sparse} sparse), expected "
-            f"{T} each, every round_update on the sparse path")
-    launches["round_update_sparse"] = sparse
+        f"launches {launches} | {card}")
+    _require_path(launches, "sparse", T, "main path")
     for f in ("final_w", "loss", "w_bar_loss", "sparsity", "regret"):
         v = np.asarray(getattr(res, f))
         require(bool(np.isfinite(v).all()), f"main path: {f} not finite")
@@ -798,40 +906,20 @@ def hybrid_phase(fused, card: str) -> int:
                       backend_options={"mode": "hybrid"})
     rf.reset_launches()
     hyb = run(spec, exec=cfg, device=DEVICE)
-    launched = rf.dual_step.launches
-    log(f"hybrid path: launches round_stats {rf.round_stats.launches}, "
-        f"round_update {rf.round_update.launches}, dual_step {launched}")
-    require(launched == AGREE_ROUNDS and rf.round_update.launches == 0,
-            f"hybrid run: dual_step launched {launched}, expected "
-            f"{AGREE_ROUNDS}, and round_update not at all")
+    launches = _launches()
+    log(f"hybrid path: launches {launches}")
+    _require_path(launches, "hybrid", AGREE_ROUNDS, "hybrid run")
     _hold(fused, hyb, "hybrid vs fused", card)
-    return launched
+    return launches["dual_step"]
 
 
-def dist_phase(sim, card: str) -> dict:
-    """The main path's run on the distributed engine: the fused kernels
-    launch once per round, and its RunResult equals the simulator's field
-    by field, exactly (wall-clock fields and the engine's name aside)."""
+def _same_run(dist, sim, what: str) -> None:
+    """Require a dist run's RunResult to equal a sim run's field by field,
+    exactly (wall-clock fields and the engine's name aside), and its final
+    engine state too."""
     import dataclasses
     import numpy as np
     import torch
-    from repro_torch import ExecConfig, run
-    from repro_torch.kernels import round_fused as rf
-    spec = paper_spec()
-    T = spec.horizon
-    cfg = ExecConfig(chunk_rounds=256, compute_regret=True, warmup=False)
-    rf.reset_launches()
-    dist = run(spec, engine="dist", exec=cfg, device=DEVICE)
-    launches = {k: getattr(rf, k).launches for k in ROUND_KERNELS}
-    log(f"dist path: {T} rounds, round loop {dist.wall_clock:.3f} s = "
-        f"{dist.rounds_per_sec:.1f} rounds/s (sim, phase 4: "
-        f"{sim.rounds_per_sec:.1f} rounds/s); launches {launches} | {card}")
-    require(launches == {"round_stats": T, "round_update": T,
-                         "dual_step": 0}
-            and rf.round_update.sparse_launches == T,
-            f"dist run launched {launches} ({rf.round_update.sparse_launches}"
-            f" sparse), expected {T} fused launches each, round_update on "
-            "the sparse path")
     skip = {"engine", "wall_clock", "rounds_per_sec", "final_state"}
     for f in dataclasses.fields(dist):
         if f.name in skip:
@@ -839,12 +927,31 @@ def dist_phase(sim, card: str) -> dict:
         a, b = getattr(dist, f.name), getattr(sim, f.name)
         same = (np.array_equal(a, b) if isinstance(a, np.ndarray)
                 else a == b)
-        require(bool(same), f"dist vs sim: {f.name} differs")
+        require(bool(same), f"{what}: {f.name} differs")
     st, sst = dist.final_state, sim.final_state
     require(st.t == sst.t and torch.equal(st.theta["w"], sst.theta)
             and torch.equal(st.generator.get_state(),
                             sst.generator.get_state()),
-            "dist vs sim: final engine state differs")
+            f"{what}: final engine state differs")
+
+
+def dist_phase(sim, card: str) -> dict:
+    """The main path's run on the distributed engine: the fused kernels
+    launch once per round, and its RunResult equals the simulator's field
+    by field, exactly (wall-clock fields and the engine's name aside)."""
+    from repro_torch import ExecConfig, run
+    from repro_torch.kernels import round_fused as rf
+    spec = paper_spec()
+    T = spec.horizon
+    cfg = ExecConfig(chunk_rounds=256, compute_regret=True, warmup=False)
+    rf.reset_launches()
+    dist = run(spec, engine="dist", exec=cfg, device=DEVICE)
+    launches = _launches()
+    log(f"dist path: {T} rounds, round loop {dist.wall_clock:.3f} s = "
+        f"{dist.rounds_per_sec:.1f} rounds/s (sim, phase 4: "
+        f"{sim.rounds_per_sec:.1f} rounds/s); launches {launches} | {card}")
+    _require_path(launches, "sparse", T, "dist run")
+    _same_run(dist, sim, "dist vs sim")
     log(f"dist vs sim: every RunResult field and the final state equal, "
         f"bit for bit, over {T} rounds")
     # the two engines' speed in turns (sim, dist, dist, sim), 256 rounds
@@ -932,7 +1039,134 @@ def ops_phase(card: str) -> dict:
     return launches
 
 
-PATHS = {"round_stats": "main", "round_update": "main", "dual_step": "hybrid",
+# -- 9-10. the topologies of Fig. 3 and the other stages ---------------------
+
+# (name, RunSpec fields, path the fused backend's auto mode must take): the
+# paper's Fig. 3 topology axis (benchmarks/fig3_topology.py) at its width
+TOPOLOGY_RUNS = (
+    ("hypercube", dict(mixer="hypercube"), "sparse"),
+    ("random", dict(mixer="random"), "sparse"),
+    ("torus", dict(mixer="sparse", mixer_options={"topology": "torus"}),
+     "sparse"),
+    ("dense-complete", dict(mixer="dense",
+                            mixer_options={"topology": "complete"}), "dense"),
+    ("complete", dict(mixer="complete"), "hybrid"),
+    ("time_varying", dict(mixer="time_varying"), "hybrid"),
+)
+DIST_TOPOLOGIES = ("hypercube", "random")
+
+
+def topology_phase(card: str) -> dict:
+    """Each Fig. 3 topology at the paper's scale on the fused backend in
+    auto mode, with regret: its rounds/s, accuracy, regret and launches
+    per kernel and path (which must be its path's); its first 64 rounds
+    held against the reference backend; hypercube and random also on the
+    dist engine, equal to the sim run exactly. Returns per run its path,
+    rounds/s and launches."""
+    import numpy as np
+    from repro_torch import ExecConfig, run
+    from repro_torch.kernels import round_fused as rf
+    cfg = ExecConfig(chunk_rounds=256, compute_regret=True, warmup=False)
+    short = ExecConfig(chunk_rounds=AGREE_ROUNDS, compute_regret=False,
+                       warmup=False)
+    out = {}
+    for name, fields, path in TOPOLOGY_RUNS:
+        spec = paper_spec(**fields)
+        T = spec.horizon
+        rf.reset_launches()
+        res = run(spec, exec=cfg, device=DEVICE)
+        launches = _launches()
+        log(f"topology {name}: {path} path, {T} rounds, round loop "
+            f"{res.wall_clock:.3f} s = {res.rounds_per_sec:.1f} rounds/s; "
+            f"accuracy {res.accuracy:.4f}, regret[-1] "
+            f"{float(res.regret[-1]):.1f}; launches {launches} | {card}")
+        _require_path(launches, path, T, f"topology {name}")
+        for f in ("final_w", "loss", "w_bar_loss", "sparsity", "regret"):
+            require(bool(np.isfinite(np.asarray(getattr(res, f))).all()),
+                    f"topology {name}: {f} not finite")
+        out[name] = dict(path=path, rounds_per_sec=res.rounds_per_sec,
+                         accuracy=res.accuracy,
+                         regret_last=float(res.regret[-1]),
+                         launches=launches)
+        if name in DIST_TOPOLOGIES:
+            rf.reset_launches()
+            dist = run(spec, engine="dist", exec=cfg, device=DEVICE)
+            _require_path(_launches(), path, T, f"topology {name} on dist")
+            _same_run(dist, res, f"topology {name}: dist vs sim")
+            log(f"topology {name}: dist {dist.rounds_per_sec:.1f} rounds/s; "
+                f"every RunResult field and the final state equal to the "
+                f"sim run, bit for bit | {card}")
+            out[name]["dist_rounds_per_sec"] = dist.rounds_per_sec
+        spec = spec.replace(horizon=AGREE_ROUNDS)
+        fused = run(spec, exec=short, device=DEVICE)
+        for f in ("correct", "sparsity", "loss", "w_bar_loss"):
+            require(np.array_equal(
+                np.asarray(getattr(fused, f)),
+                np.asarray(getattr(res, f))[:AGREE_ROUNDS]),
+                f"topology {name}: a rerun of 64 rounds differs in {f}")
+        ref = run(spec.replace(backend="reference"), exec=short,
+                  device=DEVICE)
+        _hold(fused, ref, f"topology {name}: reference vs fused backend",
+              card)
+        del res
+    return out
+
+
+# (name, RunSpec fields, path) of the other stages, 64 rounds each at the
+# paper's width, held against the reference backend
+STAGE_RUNS = (
+    ("gaussian", dict(mechanism="gaussian"), "sparse"),
+    ("drift-reshuffle", dict(stream="drift", stream_options={"period": 16}),
+     "sparse"),
+    ("drift-rotate", dict(stream="drift", stream_options={
+        "period": 16, "mode": "rotate"}), "sparse"),
+    ("heterogeneous", dict(stream="heterogeneous"), "sparse"),
+    ("bursty", dict(stream="bursty"), "sparse"),
+    ("het_delayed", dict(delay=2, delay_dist="uniform"), "hybrid"),
+)
+# the stages only the reference backend runs (the fused round hard-codes
+# the paper's rule and the per-node L2 clip)
+REFERENCE_STAGES = (("tg", dict(local_rule="tg")),
+                    ("rda", dict(local_rule="rda")),
+                    ("value", dict(clipper="value")),
+                    ("group", dict(prox_kind="group")))
+
+
+def stages_phase(card: str) -> dict:
+    """The ported mechanisms, streams and per-edge delays on the fused
+    backend (64 rounds each, on their kernel path, held against the
+    reference backend), and the rules, clipper and prox that only the
+    reference backend runs (finite outputs). Returns per run its launches."""
+    import numpy as np
+    from repro_torch import ExecConfig, run
+    from repro_torch.kernels import round_fused as rf
+    cfg = ExecConfig(chunk_rounds=AGREE_ROUNDS, compute_regret=False,
+                     warmup=False)
+    out = {}
+    for name, fields, path in STAGE_RUNS:
+        spec = paper_spec(horizon=AGREE_ROUNDS, **fields)
+        rf.reset_launches()
+        fused = run(spec, exec=cfg, device=DEVICE)
+        launches = _launches()
+        _require_path(launches, path, AGREE_ROUNDS, f"stage {name}")
+        out[name] = launches
+        ref = run(spec.replace(backend="reference"), exec=cfg, device=DEVICE)
+        _hold(fused, ref, f"stage {name} ({path} path, launches {launches}):"
+              " reference vs fused backend", card)
+    for name, fields in REFERENCE_STAGES:
+        res = run(paper_spec(horizon=AGREE_ROUNDS, backend="reference",
+                             **fields), exec=cfg, device=DEVICE)
+        for f in ("final_w", "loss", "w_bar_loss", "sparsity"):
+            require(bool(np.isfinite(np.asarray(getattr(res, f))).all()),
+                    f"stage {name}: {f} not finite")
+        log(f"stage {name} on the reference backend: {AGREE_ROUNDS} rounds,"
+            f" finite; final sparsity {float(res.sparsity[-1]):.4f}, "
+            f"accuracy {res.accuracy:.4f} | {card}")
+    return out
+
+
+PATHS = {"round_stats": "main", "round_update": "main",
+         "dual_step": "hybrid (phase 6, complete, time_varying)",
          "pdomd_update": "ops", "hinge_grad": "ops"}
 
 
@@ -948,6 +1182,13 @@ def main() -> int:
     launches["dual_step"] = hybrid_phase(fused, card)
     dist_launches = dist_phase(main_res, card)
     launches.update(ops_phase(card))
+    topologies = topology_phase(card)
+    stages = stages_phase(card)
+    hybrid = {"hybrid": launches["dual_step"],
+              **{name: run["launches"]["dual_step"]
+                 for name, run in topologies.items()
+                 if run["path"] == "hybrid"}}
+    launches["dual_step"] = sum(hybrid.values())
     for name, entry in kernels.items():
         entry["launches"] = launches[name]
         entry["path"] = PATHS[name]
@@ -955,7 +1196,17 @@ def main() -> int:
             entry["dist_launches"] = dist_launches[name]
     kernels["round_update"]["sparse_launches"] = launches[
         "round_update_sparse"]
+    kernels["round_update"]["topology_launches"] = {
+        name: {"path": run["path"],
+               "launches": run["launches"]["round_update"],
+               "sparse_launches": run["launches"]["round_update_sparse"]}
+        for name, run in topologies.items() if run["path"] != "hybrid"}
+    kernels["dual_step"]["launches_by_run"] = hybrid
     kernels["hinge_grad"]["slab_launches"] = launches["hinge_grad_slab"]
+    log("topologies (rounds/s, accuracy, regret[-1]): " + json.dumps(
+        {name: [run["rounds_per_sec"], run["accuracy"], run["regret_last"]]
+         for name, run in topologies.items()}))
+    log("stage launches: " + json.dumps(stages))
     log(smi)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -8,19 +8,36 @@ BACKENDS registry that says how the round body executes ("reference" torch
 ops or the fused "cuda" kernels).
 
 >>> from repro_torch.api import MIXERS, MECHANISMS, LOCAL_RULES, CLIPPERS
->>> MIXERS.names(), MECHANISMS.names(), LOCAL_RULES.names(), CLIPPERS.names()
-(('ring',), ('laplace', 'none'), ('omd',), ('l2', 'none'))
+>>> MIXERS.names()    # doctest: +NORMALIZE_WHITESPACE
+('complete', 'delayed', 'dense', 'disconnected', 'het_delayed', 'hypercube',
+ 'random', 'ring', 'ring_alternating', 'sparse', 'time_varying', 'torus')
+>>> MECHANISMS.names(), LOCAL_RULES.names(), CLIPPERS.names()
+... # doctest: +NORMALIZE_WHITESPACE
+(('gaussian', 'laplace', 'none'), ('omd', 'rda', 'tg', 'truncated_gradient'),
+ ('l2', 'none', 'value'))
+>>> from repro_torch.api import STREAMS
+>>> STREAMS.names()
+('bursty', 'drift', 'heterogeneous', 'social_sparse')
 """
 from repro_torch.api.registry import (BACKENDS, CLIPPERS, LOCAL_RULES,
                                       MECHANISMS, MIXERS, STREAMS, Registry,
                                       UnknownEntryError)
-from repro_torch.api.mixers import (DelayedMixer, Mixer, MixerBase,
-                                    RingRollMixer, ring_read, ring_write)
-from repro_torch.api.mechanisms import LaplaceMechanism, Mechanism, NoNoise
-from repro_torch.api.rules import LocalRule, OMDLassoRule, StepContext
+from repro_torch.api.mixers import (AlternatingRingMixer, CompleteMixer,
+                                    DelayedMixer, DenseMatrixMixer,
+                                    DisconnectedMixer,
+                                    HeterogeneousDelayMixer, Mixer,
+                                    MixerBase, RingRollMixer, SparseMixer,
+                                    ring_read, ring_write,
+                                    sample_edge_delays)
+from repro_torch.api.mechanisms import (GaussianMechanism, LaplaceMechanism,
+                                        Mechanism, NoNoise)
+from repro_torch.api.rules import (LocalRule, OMDLassoRule, RDARule,
+                                   StepContext, TruncatedGradientRule)
 from repro_torch.api.clippers import (Clipper, NoClipper, PerNodeL2Clipper,
-                                      per_node_norms)
-from repro_torch.api.streams import SocialStream, Stream
+                                      ValueClipper, per_node_norms)
+from repro_torch.api.streams import (BurstyStream, DriftStream,
+                                     HeterogeneousStream, SocialStream,
+                                     Stream)
 from repro_torch.api.spec import RunSpec
 from repro_torch.api.exec_config import ExecConfig
 from repro_torch.api.runner import RunResult, make_chunk_program, run
@@ -33,12 +50,17 @@ from repro_torch.kernels import ops
 __all__ = [
     "Registry", "UnknownEntryError", "MIXERS", "MECHANISMS", "LOCAL_RULES",
     "CLIPPERS", "STREAMS", "BACKENDS",
-    "Mixer", "MixerBase", "RingRollMixer", "DelayedMixer", "ring_read",
-    "ring_write",
-    "Mechanism", "LaplaceMechanism", "NoNoise",
-    "LocalRule", "StepContext", "OMDLassoRule",
-    "Clipper", "PerNodeL2Clipper", "NoClipper", "per_node_norms",
-    "Stream", "SocialStream",
+    "Mixer", "MixerBase", "DenseMatrixMixer", "SparseMixer", "RingRollMixer",
+    "CompleteMixer", "DisconnectedMixer", "AlternatingRingMixer",
+    "DelayedMixer", "HeterogeneousDelayMixer", "ring_read", "ring_write",
+    "sample_edge_delays",
+    "Mechanism", "LaplaceMechanism", "GaussianMechanism", "NoNoise",
+    "LocalRule", "StepContext", "OMDLassoRule", "TruncatedGradientRule",
+    "RDARule",
+    "Clipper", "PerNodeL2Clipper", "ValueClipper", "NoClipper",
+    "per_node_norms",
+    "Stream", "SocialStream", "DriftStream", "HeterogeneousStream",
+    "BurstyStream",
     "RunSpec", "ExecConfig", "RunResult", "run", "make_chunk_program",
     "ReferenceBackend", "CudaBackend",
     "GossipDP", "GossipState", "gossip_mix_tree", "per_node_clip", "ops",

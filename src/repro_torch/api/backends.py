@@ -13,7 +13,9 @@ engines ("sim" and "dist") work with either backend unchanged:
                 ``round_stats``, the clip folded into a per-node coefficient,
                 noise-add + mix + dual step + crash freeze in
                 ``round_update`` (from the graph's non-zeros when it has
-                few per row, as the ring does; else the dense A).
+                few per row — the ring, torus, hypercube and random
+                graphs; else the dense A, as for a complete ``dense``
+                mixer).
 
 Both backends share each engine's state (`SimState`, or `GossipState` with
 ``theta={"w": ...}``) and draw the noise the same way from the state's
@@ -31,7 +33,8 @@ Modes of "cuda" (``backend_options={"mode": ...}``):
   hybrid — mixing stays in torch ops (``mixer.mix`` / ``mix_history``)
            between ``round_stats`` and ``dual_step``.
   auto   — fused when the mixer lowers to a fixed sparse graph and m fits,
-           else hybrid.
+           else hybrid: the complete, disconnected, alternating-ring,
+           time-varying and per-edge-delay mixers have no fixed graph.
 
 >>> from repro_torch.api import BACKENDS
 >>> BACKENDS.names()

@@ -4,8 +4,8 @@ Counterpart of `repro.api.clippers`. Clippers act per node (axis 0 of
 every leaf) on either the simulator's bare (m, n) gradient block or the
 distributed engine's node-stacked pytree: a bare tensor is a one-leaf tree
 (`core.tree`), so one implementation serves both engines. Without clipping
-the DP guarantee is vacuous for unbounded losses. This slice ports 'l2' and
-'none'; 'value' waits in ROADMAP queue 1.
+the DP guarantee is vacuous for unbounded losses. Clippers: 'l2' (per-node
+L2 norm), 'value' (per-coordinate clamp) and 'none'.
 
 >>> import torch
 >>> from repro_torch.api import CLIPPERS
@@ -28,8 +28,8 @@ import torch
 from repro_torch.api.registry import CLIPPERS
 from repro_torch.core import tree
 
-__all__ = ["Clipper", "PerNodeL2Clipper", "NoClipper", "per_node_norms",
-           "clip_factor"]
+__all__ = ["Clipper", "PerNodeL2Clipper", "ValueClipper", "NoClipper",
+           "per_node_norms", "clip_factor"]
 
 
 def per_node_norms(grads: Any) -> torch.Tensor:
@@ -76,6 +76,21 @@ class PerNodeL2Clipper:
 
 
 @dataclasses.dataclass(frozen=True)
+class ValueClipper:
+    """Per-coordinate clamp to [-max_value, max_value] — pairs with the
+    'coordinate' Laplace calibration (bounds the L-inf sensitivity)."""
+
+    max_value: float = 1.0
+
+    def clip(self, grads):
+        norms = per_node_norms(grads)
+        clipped = tree.tree_map(
+            lambda leaf: torch.clamp(leaf, -self.max_value, self.max_value),
+            grads)
+        return clipped, norms
+
+
+@dataclasses.dataclass(frozen=True)
 class NoClipper:
     """Pass-through (non-private baselines only: voids Assumption 2.3)."""
 
@@ -87,6 +102,12 @@ class NoClipper:
 def _l2(max_norm: float = 1.0) -> Clipper:
     """Per-node L2 clip to max_norm."""
     return PerNodeL2Clipper(max_norm=max_norm)
+
+
+@CLIPPERS.register("value")
+def _value(max_norm: float = 1.0) -> Clipper:
+    """Per-coordinate clamp to [-max_norm, max_norm]."""
+    return ValueClipper(max_value=max_norm)
 
 
 @CLIPPERS.register("none")

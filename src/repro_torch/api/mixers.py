@@ -14,32 +14,60 @@ The round counter is a host int here, so the ring primitives index
 directly; ``ring_write`` writes in place (the ring belongs to the engine
 state, which the round replaces).
 
-This slice ports the ring (`RingRollMixer`, with ``torch.roll``) and the
-uniform delay wrapper; the other topologies wait in ROADMAP queue 1.
+Every topology of the reference is here: the ring (``torch.roll``), the
+complete and disconnected graphs, the alternating ring, any (possibly
+time-varying) dense schedule (`DenseMatrixMixer`, behind ``dense``,
+``torus``, ``hypercube``, ``random`` and ``time_varying``), any fixed
+edge list (`SparseMixer`, O(edges)), the uniform delay wrapper and per-edge
+heterogeneous delays (`HeterogeneousDelayMixer`). A mixer keeps its
+constant tensors on the host and copies them to a device once, the first
+time it mixes there.
 
 >>> import torch
 >>> from repro_torch.api.mixers import MIXERS
 >>> mixer = MIXERS.build("ring", m=4, self_weight=0.5)
 >>> mixer.apply(torch.arange(4.0).reshape(4, 1), 0)[:, 0].tolist()
 [1.0, 1.0, 2.0, 2.0]
+>>> MIXERS.build("delayed", m=4, inner="ring", delay=2).delay
+2
+>>> x = torch.arange(4.0)[:, None]
+>>> MIXERS.build("complete", m=4).apply(x, 0)[:, 0].tolist()
+[1.5, 1.5, 1.5, 1.5]
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Protocol, runtime_checkable
+from typing import Any, Protocol, runtime_checkable
 
+import numpy as np
 import torch
 
 from repro_torch.api.registry import MIXERS
+from repro_torch.core.graph import GossipGraph, SparseGraph
 
-__all__ = ["Mixer", "MixerBase", "RingRollMixer", "DelayedMixer",
-           "ring_write", "ring_read"]
+__all__ = ["Mixer", "MixerBase", "DenseMatrixMixer", "SparseMixer",
+           "RingRollMixer", "CompleteMixer", "DisconnectedMixer",
+           "AlternatingRingMixer", "DelayedMixer", "HeterogeneousDelayMixer",
+           "ring_write", "ring_read", "sample_edge_delays"]
 
 
 def _bcast(d: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """The (m,) per-node vector ``d`` shaped to broadcast over ``like``'s
     trailing axes (a node-stacked pytree leaf may have any of them)."""
     return d.to(like.device).reshape((-1,) + (1,) * (like.dim() - 1))
+
+
+def _on(mixer, name: str, device: torch.device):
+    """The mixer's host tensor (or tuple of tensors) ``name`` on
+    ``device``, copied there once (the copies live beside the mixer's
+    fields, outside its equality)."""
+    copies = mixer.__dict__.setdefault("_device_copies", {})
+    key = (name, torch.device(device))
+    if key not in copies:
+        host = getattr(mixer, name)
+        copies[key] = (tuple(t.to(device) for t in host)
+                       if isinstance(host, tuple) else host.to(device))
+    return copies[key]
 
 
 def ring_write(hist: torch.Tensor, t: int, value: torch.Tensor) -> torch.Tensor:
@@ -123,6 +151,123 @@ class MixerBase:
 
 
 @dataclasses.dataclass(frozen=True)
+class DenseMatrixMixer(MixerBase):
+    """Any (possibly time-varying) doubly-stochastic schedule as dense A(t).
+
+    The (k, m, m) matrix stack and its diagonals are built once, at
+    construction; A(t) is ``stack[t % k]``. ``apply`` contracts the node
+    axis with tensordot, so it also mixes node-stacked pytree leaves of any
+    trailing shape.
+    """
+
+    stack: Any               # (k, m, m) float32 (a numpy array or tensor)
+    name: str = "dense"
+    delay: int = 0
+
+    def __post_init__(self):
+        stack = torch.as_tensor(np.asarray(self.stack, np.float32))
+        if stack.dim() == 2:
+            stack = stack[None]
+        object.__setattr__(self, "stack", stack)
+        object.__setattr__(self, "_diags",
+                           torch.stack([torch.diagonal(A) for A in stack]))
+
+    @property
+    def m(self) -> int:
+        return int(self.stack.shape[-1])
+
+    @classmethod
+    def from_graph(cls, graph: GossipGraph,
+                   delay: int = 0) -> "DenseMatrixMixer":
+        return cls(stack=np.stack([np.asarray(A) for A in graph.matrices]),
+                   name=graph.name, delay=delay)
+
+    @classmethod
+    def from_topology(cls, topology: str, m: int, seed: int = 0,
+                      **kw) -> "DenseMatrixMixer":
+        return cls.from_graph(GossipGraph.make(topology, m, seed=seed, **kw))
+
+    def matrix(self, t: int, device) -> torch.Tensor:
+        """A(t) on ``device``."""
+        return _on(self, "stack", device)[t % self.stack.shape[0]]
+
+    def apply(self, x, t):
+        A = self.matrix(t, x.device)
+        return torch.tensordot(A, x.to(A.dtype), dims=1).to(x.dtype)
+
+    def diag(self, t):
+        return self._diags[t % self.stack.shape[0]]
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseMixer(MixerBase):
+    """Any FIXED doubly-stochastic topology as an edge list.
+
+    ``apply`` is the sparse matvec ``out[i] = sum_j A[i,j] x[j]`` over the
+    (dst, src)-sorted edges of a `core.graph.SparseGraph`: slot k holds the
+    k-th edge of every row that has one, and each slot adds its weighted
+    sources with one multiply-add (``torch.addcmul``) — each row summed from
+    0 in ascending source order, as ``round_update``'s sparse path and a
+    dense product sum it, so the three agree bit for bit where the device's
+    multiply-add is fused (a card). O(edges) work, never the dense A, and
+    no atomics: sim and dist stay bit-identical on any device.
+    """
+
+    graph: Any               # core.graph.SparseGraph (fixed topology)
+    delay: int = 0
+    name: str = "sparse"
+
+    def __post_init__(self):
+        g = self.graph
+        for field in ("dst", "src", "weight", "m"):
+            if not hasattr(g, field):
+                raise TypeError(
+                    "SparseMixer needs a repro_torch.core.graph.SparseGraph "
+                    f"(got {type(g).__name__} without .{field})")
+        dst = np.asarray(g.dst, np.int64)
+        order = np.lexsort((np.asarray(g.src, np.int64), dst))
+        dst = dst[order]
+        src = np.asarray(g.src, np.int64)[order]
+        w = np.asarray(g.weight, np.float32)[order]
+        deg = np.bincount(dst, minlength=g.m)
+        start = np.concatenate([[0], np.cumsum(deg)[:-1]])
+        slots = [np.flatnonzero(deg > k) for k in range(int(deg.max()))]
+        set_ = lambda k, v: object.__setattr__(self, k, v)  # noqa: E731
+        set_("_rows", tuple(torch.as_tensor(rows) for rows in slots))
+        set_("_srcs", tuple(torch.as_tensor(src[start[rows] + k])
+                            for k, rows in enumerate(slots)))
+        set_("_weights", tuple(torch.as_tensor(w[start[rows] + k])
+                               for k, rows in enumerate(slots)))
+        set_("_diag", torch.as_tensor(np.asarray(g.diag(), np.float32)))
+
+    @property
+    def m(self) -> int:
+        return int(self.graph.m)
+
+    @classmethod
+    def from_topology(cls, topology: str, m: int, seed: int = 0,
+                      delay: int = 0, **kw) -> "SparseMixer":
+        return cls(graph=SparseGraph.make(topology, m, seed=seed, **kw),
+                   delay=delay, name=topology)
+
+    def apply(self, x, t):
+        dev = x.device
+        flat = x.to(torch.float32).reshape(self.m, x[0].numel())
+        out = torch.zeros_like(flat)
+        for rows, src, w in zip(_on(self, "_rows", dev),
+                                _on(self, "_srcs", dev),
+                                _on(self, "_weights", dev)):
+            if rows.numel() == self.m:      # every row has a k-th edge
+                out = torch.addcmul(out, w[:, None], flat[src])
+            else:
+                out[rows] = torch.addcmul(out[rows], w[:, None], flat[src])
+        return out.reshape(x.shape).to(x.dtype)
+
+    def diag(self, t):
+        return self._diag
+
+
+@dataclasses.dataclass(frozen=True)
 class RingRollMixer(MixerBase):
     """Bidirectional ring via torch.roll; numerically the same map as
     ``core.graph.ring_matrix``."""
@@ -139,6 +284,62 @@ class RingRollMixer(MixerBase):
 
     def diag(self, t):
         return torch.full((self.m,), self.self_weight, dtype=torch.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class CompleteMixer(MixerBase):
+    """Fully connected graph: exact consensus (the node mean) every round."""
+
+    m: int
+    delay: int = 0
+
+    def apply(self, x, t):
+        return torch.mean(x, dim=0, keepdim=True).expand_as(x)
+
+    def diag(self, t):
+        return torch.full((self.m,), 1.0 / self.m, dtype=torch.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class DisconnectedMixer(MixerBase):
+    """No communication: every node keeps its own CLEAN state.
+
+    Nothing leaves the node, so nothing needs the broadcast noise — the
+    ``mix*`` methods ignore theta~ (local-only ablation baseline).
+    """
+
+    m: int
+    delay: int = 0
+
+    def apply(self, x, t):
+        return x
+
+    def diag(self, t):
+        return torch.ones((self.m,), dtype=torch.float32)
+
+    def mix(self, clean, tilde, noise_self, t):
+        return clean
+
+    def mix_delayed(self, clean, tilde, recv, noise_self, t):
+        return clean
+
+    def mix_history(self, clean, tilde, hist, noise_self, t):
+        return clean
+
+
+@dataclasses.dataclass(frozen=True)
+class AlternatingRingMixer(MixerBase):
+    """Time-varying graph: even rounds pair with the +1 ring neighbor, odd
+    rounds with the -1 neighbor; each A(t) is a (1/2, 1/2) circulant."""
+
+    m: int
+    delay: int = 0
+
+    def apply(self, x, t):
+        return 0.5 * x + 0.5 * torch.roll(x, 1 if t % 2 == 0 else -1, dims=0)
+
+    def diag(self, t):
+        return torch.full((self.m,), 0.5, dtype=torch.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,7 +371,202 @@ class DelayedMixer(MixerBase):
         return self.inner.mix_delayed(clean, tilde, recv, noise_self, t)
 
 
+def sample_edge_delays(m: int, max_delay: int, dist: str = "uniform",
+                       seed: int = 0,
+                       support: np.ndarray | None = None) -> np.ndarray:
+    """Draw an (m, m) int matrix of per-edge staleness values (numpy's
+    ``default_rng(seed)``, the reference's draws bit for bit).
+
+    dist: 'constant'  — every edge lags exactly max_delay rounds;
+          'uniform'   — integer delays uniform on [0, max_delay];
+          'geometric' — mostly-fresh links with a heavy tail (p=0.5),
+                        clipped to max_delay.
+    The diagonal is always 0 (a node's own state needs no network hop) and
+    delays outside ``support`` (the union of edges with nonzero A weight)
+    are zeroed so they cannot inflate the ring depth.
+    """
+    rng = np.random.default_rng(seed)
+    if dist == "constant":
+        D = np.full((m, m), max_delay, np.int32)
+    elif dist == "uniform":
+        D = rng.integers(0, max_delay + 1, size=(m, m)).astype(np.int32)
+    elif dist == "geometric":
+        D = np.clip(rng.geometric(0.5, size=(m, m)) - 1, 0,
+                    max_delay).astype(np.int32)
+    else:
+        raise ValueError(
+            f"unknown delay_dist {dist!r}; expected "
+            "'constant' | 'uniform' | 'geometric'")
+    np.fill_diagonal(D, 0)
+    if support is not None:
+        D = np.where(support, D, 0).astype(np.int32)
+        np.fill_diagonal(D, 0)
+    return D
+
+
+@dataclasses.dataclass(frozen=True)
+class HeterogeneousDelayMixer(MixerBase):
+    """Per-edge WAN delays: edge (i, j) delivers node j's broadcast to node
+    i ``delays[i, j]`` rounds late, the lags drawn once at construction
+    (``sample_edge_delays``).
+
+    Needs the dense form of A(t): the mix is one masked matrix-apply per
+    non-empty delay class d,
+
+        out_i = A_ii * s_i + sum_d sum_{j != i, delays[i,j]=d} A_ij(t) * r_j(d)
+
+    where r(d) is the ring entry from d rounds ago and s the current theta~
+    (or the clean theta when noise_self=False). The class masks are built
+    once, at construction.
+    """
+
+    inner: DenseMatrixMixer
+    delays: Any = None           # (m, m) np.int32; diagonal forced to 0
+    name: str = "het_delayed"
+
+    def __post_init__(self):
+        D = np.asarray(self.delays, np.int32)
+        if D.shape != (self.inner.m, self.inner.m):
+            raise ValueError(
+                f"delays must be ({self.inner.m}, {self.inner.m}), got "
+                f"{D.shape}")
+        if (D < 0).any():
+            raise ValueError("per-edge delays must be >= 0")
+        D = D.copy()
+        np.fill_diagonal(D, 0)
+        object.__setattr__(self, "delays", D)
+        offdiag = ~np.eye(self.m, dtype=bool)
+        masks = np.stack([(D == d) & offdiag
+                          for d in range(int(D.max()) + 1)])
+        # an empty delay class needs no tensordot
+        object.__setattr__(self, "_classes", tuple(
+            d for d in range(masks.shape[0]) if masks[d].any()))
+        object.__setattr__(self, "_masks",
+                           torch.as_tensor(masks.astype(np.float32)))
+
+    @classmethod
+    def from_topology(cls, topology: str, m: int, delay: int = 1,
+                      delay_dist: str = "uniform", seed: int = 0,
+                      **kw) -> "HeterogeneousDelayMixer":
+        inner = DenseMatrixMixer.from_topology(topology, m, seed=seed, **kw)
+        support = (inner.stack.numpy() > 0).any(axis=0)
+        np.fill_diagonal(support, False)
+        return cls(inner=inner,
+                   delays=sample_edge_delays(m, delay, delay_dist, seed,
+                                             support=support))
+
+    @property
+    def m(self) -> int:
+        return self.inner.m
+
+    @property
+    def delay(self) -> int:
+        return int(self.delays.max())
+
+    def apply(self, x, t):
+        return self.inner.apply(x, t)
+
+    def diag(self, t):
+        return self.inner.diag(t)
+
+    def mix_delayed(self, clean, tilde, recv, noise_self, t):
+        raise NotImplementedError(
+            "HeterogeneousDelayMixer has no single stale view — MixerBase's "
+            "uniform-recv algebra would silently ignore the per-edge delays; "
+            "use mix_history with the engine's ring")
+
+    def mix_history(self, clean, tilde, hist, noise_self, t):
+        if hist is None:
+            if self.delay:
+                raise ValueError(
+                    "HeterogeneousDelayMixer needs the engine's history ring "
+                    "(GossipState/SimState.history); got None")
+            hist = tilde[None]
+        A = self.inner.matrix(t, tilde.device)
+        masks = _on(self, "_masks", tilde.device)
+        self_term = tilde if noise_self else clean
+        out = _bcast(self.diag(t), tilde) * self_term
+        for d in self._classes:
+            Ad = A * masks[d]
+            recv = ring_read(hist, t, d, tilde)
+            out = out + torch.tensordot(Ad, recv.to(Ad.dtype),
+                                        dims=1).to(tilde.dtype)
+        return out
+
+
+# -- registry entries --------------------------------------------------------
+
 @MIXERS.register("ring")
 def _ring(m: int, self_weight: float = 0.5, delay: int = 0) -> Mixer:
     """Bidirectional ring of data centres (torch.roll)."""
     return RingRollMixer(m=m, self_weight=self_weight, delay=delay)
+
+
+@MIXERS.register("complete")
+def _complete(m: int, delay: int = 0) -> Mixer:
+    """Fully connected graph: exact consensus every round."""
+    return CompleteMixer(m=m, delay=delay)
+
+
+@MIXERS.register("disconnected")
+def _disconnected(m: int, delay: int = 0) -> Mixer:
+    """No communication (local-only baseline)."""
+    return DisconnectedMixer(m=m, delay=delay)
+
+
+@MIXERS.register("ring_alternating")
+def _ring_alternating(m: int, delay: int = 0) -> Mixer:
+    """Time-varying ring: +1 neighbour on even rounds, -1 on odd ones."""
+    return AlternatingRingMixer(m=m, delay=delay)
+
+
+@MIXERS.register("dense")
+def _dense(m: int, matrices=None, topology: str = "ring", seed: int = 0,
+           delay: int = 0, **kw) -> Mixer:
+    """Any doubly-stochastic schedule as dense A(t): `matrices=` or a
+    GossipGraph `topology=`."""
+    if matrices is not None:
+        mixer = DenseMatrixMixer(stack=np.stack([np.asarray(A)
+                                                 for A in matrices]))
+    else:
+        mixer = DenseMatrixMixer.from_topology(topology, m, seed=seed, **kw)
+    return dataclasses.replace(mixer, delay=delay)
+
+
+@MIXERS.register("sparse")
+def _sparse(m: int, graph=None, topology: str = "ring", seed: int = 0,
+            delay: int = 0, **kw) -> Mixer:
+    """Edge-list topology via SparseMixer: `graph=` takes a prebuilt
+    SparseGraph; otherwise `topology=` builds one (ring/torus natively
+    sparse, other fixed topologies via their dense form)."""
+    if graph is not None:
+        return SparseMixer(graph=graph, delay=delay,
+                           name=getattr(graph, "name", "sparse"))
+    return SparseMixer.from_topology(topology, m, seed=seed, delay=delay, **kw)
+
+
+# The graph-backed topologies of the paper's Fig. 3 sweep, exposed directly.
+for _name in ("torus", "hypercube", "random", "time_varying"):
+    @MIXERS.register(_name)
+    def _graph_mixer(m: int, seed: int = 0, delay: int = 0,
+                     _topology: str = _name, **kw) -> Mixer:
+        """A GossipGraph topology as a dense A(t) (DenseMatrixMixer)."""
+        mixer = DenseMatrixMixer.from_topology(_topology, m, seed=seed, **kw)
+        return dataclasses.replace(mixer, delay=delay)
+
+
+@MIXERS.register("delayed")
+def _delayed(m: int, inner: str | Mixer = "ring", delay: int = 1,
+             seed: int = 0, **kw) -> Mixer:
+    """Any mixer with a uniform WAN delay of `delay` rounds."""
+    return DelayedMixer(inner=MIXERS.build(inner, m=m, seed=seed, **kw),
+                        delay=delay)
+
+
+@MIXERS.register("het_delayed")
+def _het_delayed(m: int, inner: str = "ring", delay: int = 1,
+                 delay_dist: str = "uniform", seed: int = 0, **kw) -> Mixer:
+    """Per-edge heterogeneous delays over a dense topology."""
+    return HeterogeneousDelayMixer.from_topology(inner, m, delay=delay,
+                                                 delay_dist=delay_dist,
+                                                 seed=seed, **kw)

@@ -2,9 +2,17 @@
 
 Counterpart of `repro.api.rules`. A rule defines the two halves of steps
 6-10 that are not mixing: primal recovery (state -> prediction weights) and
-the dual step (mixed state + clipped gradient -> next state). This slice
-ports the paper's rule, 'omd' (mirror descent + Lasso prox) with prox 'l1'
-or 'none'; 'tg', 'rda' and the group prox wait in ROADMAP queue 1.
+the dual step (mixed state + clipped gradient -> next state). Rules act on
+single (m, ...) tensors; the distributed engine maps them over node-stacked
+leaves, so one implementation serves both engines.
+
+Families (paper §I):
+  'omd' — the paper's rule: mirror descent + Lasso prox (Algorithm 1),
+          prox 'l1', 'group' or 'none'.
+  'tg'  — truncated gradient (Langford, Li & Zhang '09, ref [11]):
+          gossip mixes w itself; w <- shrink(w_mixed - a g, a lam).
+  'rda' — L1 regularized dual averaging (Xiao '10, ref [12]): gossip mixes
+          the cumulative gradient G; w = -(sqrt(t)/gamma) shrink(G/t, lam).
 
 >>> import torch
 >>> from repro_torch.api import LOCAL_RULES, StepContext
@@ -18,12 +26,14 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Protocol, runtime_checkable
 
+import numpy as np
 import torch
 
 from repro_torch.api.registry import LOCAL_RULES
 from repro_torch.core import prox
 
-__all__ = ["StepContext", "LocalRule", "OMDLassoRule"]
+__all__ = ["StepContext", "LocalRule", "OMDLassoRule",
+           "TruncatedGradientRule", "RDARule"]
 
 
 class StepContext(NamedTuple):
@@ -60,6 +70,7 @@ class LocalRule(Protocol):
 _PROX = {
     "l1": lambda p, lam_t: prox.soft_threshold(p, lam_t),
     "none": lambda p, lam_t: p,
+    "group": lambda p, lam_t: prox.group_soft_threshold(p, lam_t),
 }
 
 
@@ -71,10 +82,7 @@ class OMDLassoRule:
 
     def __post_init__(self):
         if self.prox_kind not in _PROX:
-            raise NotImplementedError(
-                f"prox_kind {self.prox_kind!r} is not ported to repro_torch "
-                f"(ported: {sorted(_PROX)}); the rest waits in ROADMAP "
-                "queue 1")
+            raise ValueError(f"unknown prox_kind {self.prox_kind!r}")
 
     def init_state(self, params):
         return params  # theta_1 = model init (identity mirror map)
@@ -86,7 +94,58 @@ class OMDLassoRule:
         return mixed - ctx.alpha_t * grad.to(mixed.dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class TruncatedGradientRule:
+    """Ref [11]: the state IS w; shrink after every gradient step."""
+
+    def init_state(self, params):
+        return params  # state is w itself
+
+    def primal(self, theta, ctx):
+        return theta
+
+    def dual_step(self, mixed, grad, ctx):
+        return prox.soft_threshold(
+            mixed - ctx.alpha_t * grad.to(mixed.dtype), ctx.lam_t)
+
+
+@dataclasses.dataclass(frozen=True)
+class RDARule:
+    """Ref [12]: the state is the running gradient sum G; w from the
+    l1-RDA closed form with the sqrt(t)/gamma schedule (scalars in f32, as
+    the reference computes them; G/t a true division on any device)."""
+
+    gamma: float = 1.0
+
+    def init_state(self, params):
+        # the state is the cumulative gradient sum G, not the weights —
+        # seeding it with a model init would corrupt the RDA iterate
+        return torch.zeros_like(params)
+
+    def primal(self, theta, ctx):
+        tf = np.float32(max(int(ctx.t), 1))
+        gbar = theta / torch.tensor(tf, dtype=theta.dtype,
+                                    device=theta.device)
+        coef = -(np.sqrt(tf) / np.float32(self.gamma))
+        return float(coef) * prox.soft_threshold(gbar, ctx.lam)
+
+    def dual_step(self, mixed, grad, ctx):
+        return mixed + grad.to(mixed.dtype)
+
+
 @LOCAL_RULES.register("omd")
 def _omd(prox_kind: str = "l1") -> LocalRule:
     """The paper's OMD + Lasso prox rule."""
     return OMDLassoRule(prox_kind=prox_kind)
+
+
+@LOCAL_RULES.register("tg", "truncated_gradient")
+def _tg() -> LocalRule:
+    """Truncated gradient (ref [11])."""
+    return TruncatedGradientRule()
+
+
+@LOCAL_RULES.register("rda")
+def _rda(gamma: float = 1.0) -> LocalRule:
+    """L1 regularized dual averaging (ref [12])."""
+    return RDARule(gamma=gamma)

@@ -1,11 +1,10 @@
 """RunSpec — one declarative description of a private-gossip run.
 
 Counterpart of `repro.api.spec.RunSpec`, with the same field names and
-defaults. Fields accept registry names or constructed stage instances. The
-fields whose stages this slice does not carry — ``faults``, ``delay_dist``,
-and registry names other than the ported ring mixer, Laplace/none
-mechanisms, 'omd' rule with the l1/none prox, l2/none clippers and the
-social_sparse stream — raise NotImplementedError naming ROADMAP queue 1.
+defaults. Fields accept registry names or constructed stage instances; every
+registry name of the reference resolves here. ``faults`` (`repro.faults`)
+is not ported yet: anything but None raises NotImplementedError naming
+ROADMAP queue 1.
 
 >>> from repro_torch.api import RunSpec
 >>> spec = RunSpec(nodes=4, dim=8, mixer="ring", eps=float("inf"))
@@ -13,6 +12,9 @@ social_sparse stream — raise NotImplementedError naming ROADMAP queue 1.
 'Algorithm1'
 >>> spec.replace(delay=3).resolve_mixer().delay     # uniform WAN staleness
 3
+>>> het = spec.replace(delay=2, delay_dist="uniform").resolve_mixer()
+>>> type(het).__name__, 0 <= het.delay <= 2
+('HeterogeneousDelayMixer', True)
 """
 from __future__ import annotations
 
@@ -23,9 +25,10 @@ import torch
 
 from repro_torch.api.clippers import Clipper
 from repro_torch.api.mechanisms import Mechanism
-from repro_torch.api.mixers import DelayedMixer, Mixer
+from repro_torch.api.mixers import (DelayedMixer, HeterogeneousDelayMixer,
+                                    Mixer)
 from repro_torch.api.registry import (BACKENDS, CLIPPERS, LOCAL_RULES,
-                                      MECHANISMS, MIXERS, STREAMS, Registry)
+                                      MECHANISMS, MIXERS, STREAMS)
 from repro_torch.api.rules import LocalRule
 from repro_torch.api.streams import Stream
 from repro_torch.core.omd import OMDConfig
@@ -37,12 +40,6 @@ def not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet; it waits in ROADMAP "
         "queue 1 (use the JAX package `repro` meanwhile)")
-
-
-def _ported(registry: Registry, name, field: str):
-    """Refuse a registry name the port does not carry yet."""
-    if isinstance(name, str) and name not in registry.names():
-        raise not_ported(f"{field}={name!r} (ported: {list(registry.names())})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,7 +61,13 @@ class RunSpec:
              instance), built with n=dim, nodes, rounds=horizon, seed.
     delay:   WAN staleness in rounds — wraps the mixer in DelayedMixer (the
              engine allocates a delay+1 deep history ring).
-    delay_dist, faults / faults_options:
+    delay_dist:
+             per-edge heterogeneous staleness: 'constant' | 'uniform' |
+             'geometric' builds a HeterogeneousDelayMixer over the dense
+             form of ``mixer`` with per-edge delays drawn from the seeded
+             distribution, capped at ``delay``. None keeps the uniform
+             delay.
+    faults / faults_options:
              not ported (ROADMAP queue 1); anything but None raises.
     backend / backend_options:
              how the round body executes (BACKENDS name or instance):
@@ -107,17 +110,31 @@ class RunSpec:
     def __post_init__(self):
         if self.faults is not None:
             raise not_ported("faults= (repro.faults)")
-        if self.delay_dist is not None:
-            raise not_ported("delay_dist= (per-edge heterogeneous delays)")
-        _ported(MIXERS, self.mixer, "mixer")
-        _ported(MECHANISMS, self.mechanism, "mechanism")
-        _ported(LOCAL_RULES, self.local_rule, "local_rule")
-        _ported(CLIPPERS, self.clipper, "clipper")
-        _ported(STREAMS, self.stream, "stream")
 
     # -- stage resolution ----------------------------------------------------
 
     def resolve_mixer(self) -> Mixer:
+        if self.delay_dist is not None:
+            if not isinstance(self.mixer, str):
+                raise ValueError(
+                    "delay_dist needs a topology NAME for the dense per-edge "
+                    "decomposition (got a constructed mixer instance); build "
+                    "a HeterogeneousDelayMixer directly instead")
+            if self.delay < 1:
+                raise ValueError("delay_dist needs delay >= 1 (the cap on "
+                                 "per-edge staleness)")
+            try:
+                return HeterogeneousDelayMixer.from_topology(
+                    self.mixer, self.nodes, delay=self.delay,
+                    delay_dist=self.delay_dist, seed=self.seed,
+                    **self.mixer_options)
+            except ValueError as err:
+                # e.g. mixer='ring_alternating' is a MIXERS name but not a
+                # dense GossipGraph topology: name the knob at fault
+                raise ValueError(
+                    f"delay_dist={self.delay_dist!r} (per-edge delays need "
+                    f"the dense GossipGraph form of mixer={self.mixer!r}): "
+                    f"{err}") from None
         mixer = MIXERS.build(self.mixer, self.mixer_options,
                              m=self.nodes, seed=self.seed)
         if getattr(mixer, "m", self.nodes) != self.nodes:

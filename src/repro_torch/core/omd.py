@@ -1,8 +1,9 @@
 """OMD schedules — the paper's alpha_t and lambda_t = alpha_t * lambda.
 
-Counterpart of `repro.core.omd` (the schedule half; the optax-style wrapper
-waits in ROADMAP queue 1). The round loop runs on the host in Python, so the
-per-round schedule values are host scalars. They are computed in numpy
+Counterpart of `repro.core.omd` (the schedules and the primal recovery
+``omd_primal``; the optax-style wrapper waits in ROADMAP queue 1). The
+round loop runs on the host in Python, so the per-round schedule values are
+host scalars. They are computed in numpy
 float32 with the same operations, in the same order, as the reference's
 jnp float32 arithmetic, so alpha_t, lam_t and the noise scale equal the
 reference's values bit for bit.
@@ -11,11 +12,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 
-__all__ = ["OMDConfig", "alpha_schedule"]
+from repro_torch.core import prox, tree
+
+__all__ = ["OMDConfig", "alpha_schedule", "omd_primal"]
 
 f32 = np.float32
 Schedule = Callable[[int], np.float32]
@@ -50,7 +53,7 @@ class OMDConfig:
     schedule: str = "sqrt_t"
     lam: float = 0.01          # lambda; lambda_t = alpha_t * lambda (Thm 2)
     T: int | None = None       # horizon, needed by 'theorem2'
-    prox_kind: str = "l1"      # 'l1' | 'none'
+    prox_kind: str = "l1"      # 'l1' | 'none' | 'group'
 
     def alpha(self) -> Schedule:
         return alpha_schedule(self.schedule, self.alpha0, self.T)
@@ -66,3 +69,16 @@ class OMDConfig:
         alpha_t = self.alpha()(t)
         return StepContext(t=int(t), alpha_t=float(alpha_t),
                            lam_t=float(self.lam_t(alpha_t)), lam=self.lam)
+
+
+def omd_primal(theta: Any, lam_t, prox_kind: str = "l1") -> Any:
+    """Steps 6-7 on a pytree: w = prox(grad phi*(theta)) with the l1, group
+    or identity prox."""
+    p = tree.tree_map(prox.l2_mirror_map, theta)
+    if prox_kind == "none":
+        return p
+    if prox_kind == "l1":
+        return prox.soft_threshold_tree(p, lam_t)
+    if prox_kind == "group":
+        return tree.tree_map(lambda x: prox.group_soft_threshold(x, lam_t), p)
+    raise ValueError(prox_kind)

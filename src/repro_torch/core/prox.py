@@ -15,8 +15,9 @@ import torch
 
 from repro_torch.core import tree
 
-__all__ = ["soft_threshold", "soft_threshold_tree", "l2_mirror_map",
-           "sparsity", "sparsity_tree", "zero_fraction"]
+__all__ = ["soft_threshold", "soft_threshold_tree", "elastic_net_prox",
+           "group_soft_threshold", "l2_mirror_map", "sparsity",
+           "sparsity_tree", "zero_fraction"]
 
 
 def soft_threshold(p: torch.Tensor, lam) -> torch.Tensor:
@@ -27,6 +28,24 @@ def soft_threshold(p: torch.Tensor, lam) -> torch.Tensor:
 def soft_threshold_tree(params: Any, lam) -> Any:
     """`soft_threshold` of every leaf of a pytree."""
     return tree.tree_map(lambda p: soft_threshold(p, lam), params)
+
+
+def elastic_net_prox(p: torch.Tensor, lam_l1, lam_l2) -> torch.Tensor:
+    """prox of lam_l1 ||.||_1 + lam_l2/2 ||.||_2^2 (beyond-paper option):
+    the soft threshold over f32(1 + lam_l2), a true division on any
+    device."""
+    denom = torch.tensor(np.float32(1.0) + np.float32(lam_l2),
+                         dtype=p.dtype, device=p.device)
+    return soft_threshold(p, lam_l1) / denom
+
+
+def group_soft_threshold(p: torch.Tensor, lam, axis: int = -1) -> torch.Tensor:
+    """Group-lasso prox: shrink whole rows/groups by their L2 norm
+    (structured sparsity: zeros entire feature groups)."""
+    norm = torch.sqrt(torch.sum(torch.square(p), dim=axis, keepdim=True))
+    scale = (torch.clamp_min(norm - float(lam), 0.0)
+             / torch.clamp_min(norm, 1e-12))
+    return p * scale
 
 
 def l2_mirror_map(theta: torch.Tensor) -> torch.Tensor:

@@ -24,7 +24,8 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["SocialStream", "labels_from_logits", "round_seed"]
+__all__ = ["SocialStream", "labels_from_logits", "round_seed",
+           "seeded_generator", "sparse_unit_w"]
 
 
 def labels_from_logits(logits: torch.Tensor) -> torch.Tensor:
@@ -38,6 +39,25 @@ def round_seed(*key: int) -> int:
     ground truth, ``(seed + 1, t)`` for absolute round t."""
     state = np.random.SeedSequence(tuple(int(k) for k in key)).generate_state(2)
     return int((int(state[0]) << 31) ^ int(state[1])) & (2**63 - 1)
+
+
+def seeded_generator(device: torch.device, *key: int) -> torch.Generator:
+    """A generator on ``device`` seeded from ``round_seed(*key)``."""
+    g = torch.Generator(device=device)
+    g.manual_seed(round_seed(*key))
+    return g
+
+
+def sparse_unit_w(generator: torch.Generator, n: int,
+                  sparsity_true: float) -> torch.Tensor:
+    """(n,) unit-norm ground truth whose support holds each feature with
+    probability ``sparsity_true``: a uniform draw for the mask, then a
+    normal one for the values, both from ``generator``."""
+    dev = generator.device
+    mask = torch.rand(n, generator=generator, device=dev) < sparsity_true
+    w = torch.randn(n, generator=generator, device=dev) * mask
+    return (w / torch.clamp_min(torch.linalg.norm(w), 1e-9)).to(
+        torch.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,13 +81,8 @@ class SocialStream:
     @functools.cached_property
     def w_true(self) -> torch.Tensor:
         """(n,) unit-norm sparse ground truth, a function of the seed."""
-        g = torch.Generator(device=self._device)
-        g.manual_seed(round_seed(self.seed))
-        mask = torch.rand(self.n, generator=g, device=self._device) \
-            < self.sparsity_true
-        w = torch.randn(self.n, generator=g, device=self._device) * mask
-        return (w / torch.clamp_min(torch.linalg.norm(w), 1e-9)).to(
-            torch.float32)
+        return sparse_unit_w(seeded_generator(self._device, self.seed),
+                             self.n, self.sparsity_true)
 
     def chunk(self, t0: int, t1: int) -> tuple[torch.Tensor, torch.Tensor]:
         """Rounds [t0, t1): xs (t1-t0, m, n), ys (t1-t0, m) on the device."""
