@@ -50,7 +50,8 @@ Phases (any failure raises, and the script exits non-zero):
                have launched once per round. Then the device idle share of
                64 rounds (profiler busy time over the round loop's time).
 5. agreement — the first 64 rounds on ``backend="reference"`` (torch ops)
-               against the fused backend, same seed and generator.
+               against the fused backend, same seed and generator; then
+               the whole horizon (1,562 rounds) at seeds 0, 1 and 2.
 6. hybrid    — 64 rounds with ``mode="hybrid"`` (torch-op mix, then
                ``dual_step``) against the fused run.
 7. dist      — the main path's run on the distributed engine
@@ -80,6 +81,21 @@ Phases (any failure raises, and the script exits non-zero):
                (``delay_dist``) on the hybrid path, each held against the
                reference backend; the tg and rda rules, the value clipper
                and the group prox on the reference backend (finite).
+11. faults   — the main path's spec under the ``dcn`` preset (link drops,
+               crashes, stragglers), fused backend in auto mode: it must
+               take the hybrid path (``round_stats`` and ``dual_step``
+               every round, ``round_update`` never: a faulty mixer has no
+               fixed form), hold to the reference backend over all 1,562
+               rounds (connectivity exact too), charge its five crashed
+               nodes 1,554 rounds of eps and the rest 1,562, and equal the
+               sim run on the dist engine; its rounds/s beside the clean
+               ring's in turns, and device events a round and idle share
+               of its round body (stream made beforehand) beside the clean
+               fused and hybrid rounds'. Then 64 rounds
+               of a zero-rate scenario, bit for bit the clean sparse ring
+               in hybrid mode, and 64 of a partition (rounds 16-31, cut at
+               node 32) on the 8x8 torus, held to the reference backend,
+               its connectivity below 1 exactly while the cut is up.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line (time,
 bound, plain-version time and launches of every kernel), and last
@@ -787,19 +803,31 @@ def paper_spec(**kw):
     return RunSpec(**base)
 
 
-def _hold(ref, got, what: str, card: str) -> None:
-    """Hold run ``got`` to run ``ref`` over their first AGREE_ROUNDS
-    rounds: correct, sparsity and eps_ledger exact; final_w, loss and
-    w_bar_loss within FLOAT_TOL. Logs every field's max difference first."""
+def _hold(ref, got, what: str, card: str,
+          rounds: int = AGREE_ROUNDS) -> None:
+    """Hold run ``got`` to run ``ref`` over their first ``rounds`` rounds:
+    correct, sparsity, eps_ledger (and connectivity, where the runs carry
+    one) exact; final_w, loss and w_bar_loss within FLOAT_TOL. Logs every
+    field's max difference, and the first round where an exact field
+    differs, before it requires anything."""
     import numpy as np
-    d = {f: float(np.abs(np.asarray(getattr(got, f))[:AGREE_ROUNDS]
-                         - np.asarray(getattr(ref, f))[:AGREE_ROUNDS]).max())
-         for f in ("correct", "sparsity", "eps_ledger", "loss",
-                   "w_bar_loss")}
+    exact = ("correct", "sparsity", "eps_ledger") + (
+        ("connectivity",) if ref.connectivity is not None else ())
+    d, first = {}, {}
+    for f in exact + ("loss", "w_bar_loss"):
+        diff = np.abs(np.asarray(getattr(got, f))[:rounds]
+                      - np.asarray(getattr(ref, f))[:rounds])
+        d[f] = float(diff.max())
+        off = np.flatnonzero(diff.reshape(diff.shape[0], -1).max(axis=1))
+        if f in exact and off.size:
+            first[f] = int(off[0])
     d["final_w"] = float(np.abs(got.final_w - ref.final_w).max())
-    log(f"{what}, {AGREE_ROUNDS} rounds, max abs differences: {d} | {card}")
-    for f in ("correct", "sparsity", "eps_ledger"):
-        require(d[f] == 0, f"{what}: {f} differs")
+    log(f"{what}, {rounds} rounds, max abs differences: {d}"
+        + (f"; first round differing: {first}" if first else "")
+        + f" | {card}")
+    for f in exact:
+        require(d[f] == 0, f"{what}: {f} differs from round {first.get(f)}"
+                f" on (max abs difference {d[f]})")
     for f in ("final_w", "loss", "w_bar_loss"):
         require(d[f] <= FLOAT_TOL, f"{what}: {f} off by {d[f]}")
 
@@ -897,6 +925,24 @@ def agreement_phase(main, card: str):
     return fused
 
 
+HOLD_SEEDS = (0, 1, 2)
+
+
+def long_agreement_phase(main, card: str) -> None:
+    """The main path's fused run against the reference backend over the
+    whole horizon (1,562 rounds) at seeds 0, 1 and 2 (seed 0's fused run is
+    phase 4's)."""
+    from repro_torch import ExecConfig, run
+    cfg = ExecConfig(chunk_rounds=256, compute_regret=False, warmup=False)
+    for seed in HOLD_SEEDS:
+        spec = paper_spec(seed=seed)
+        fused = main if seed == 0 else run(spec, exec=cfg, device=DEVICE)
+        ref = run(spec.replace(backend="reference"), exec=cfg, device=DEVICE)
+        _hold(fused, ref, f"main path, seed {seed}: reference vs fused "
+              f"backend (reference {ref.rounds_per_sec:.1f} rounds/s)",
+              card, rounds=spec.horizon)
+
+
 def hybrid_phase(fused, card: str) -> int:
     from repro_torch import ExecConfig, run
     from repro_torch.kernels import round_fused as rf
@@ -921,10 +967,14 @@ def _same_run(dist, sim, what: str) -> None:
     import numpy as np
     import torch
     skip = {"engine", "wall_clock", "rounds_per_sec", "final_state"}
+    timing = {"engine", "wall_clock_s", "rounds_per_sec"}
     for f in dataclasses.fields(dist):
         if f.name in skip:
             continue
         a, b = getattr(dist, f.name), getattr(sim, f.name)
+        if f.name == "metrics":         # summary() carries the timing
+            a, b = ({k: v for k, v in m.items() if k not in timing}
+                    for m in (a, b))
         same = (np.array_equal(a, b) if isinstance(a, np.ndarray)
                 else a == b)
         require(bool(same), f"{what}: {f.name} differs")
@@ -1165,8 +1215,157 @@ def stages_phase(card: str) -> dict:
     return out
 
 
+# -- 11. faults -----------------------------------------------------------------
+
+DCN_CRASHED = (7, 10, 18, 35, 41)   # the dcn preset's crash windows at m=64,
+#                                     horizon 1,562, fault seed 0 (8 rounds)
+PARTITION = {"start": 16, "end": 32, "cut": 32}
+
+
+def _per_round_profile(spec, rounds: int) -> tuple[float, float, float]:
+    """(device events a round, device busy us, loop us) of the round body
+    alone: ``rounds`` rounds of the spec's chunk program over a stream
+    chunk made beforehand, from a fresh state. The events and busy time
+    come from one profiled call, the loop's time from an unprofiled one
+    (caches warm)."""
+    import torch
+    from repro_torch.api.runner import make_chunk_program
+    from repro_torch.device import resolve_device, synchronize
+    dev = resolve_device(DEVICE)
+    chunk_fn, init_fn = make_chunk_program(spec, "sim", dev)
+    xs, ys = (torch.as_tensor(a, dtype=torch.float32).to(dev) for a in
+              spec.resolve_stream(device=dev).chunk(0, rounds))
+
+    def body():
+        chunk_fn(init_fn(spec.seed), xs, ys)
+
+    body()
+    synchronize(dev)
+    t0 = time.perf_counter()
+    body()
+    synchronize(dev)
+    loop_us = (time.perf_counter() - t0) * 1e6
+    events = _profiled(body, reps=1)
+    busy_us = sum(e.time_range.elapsed_us() for e in events)
+    return len(events) / rounds, busy_us, loop_us
+
+
+def faults_phase(clean, card: str) -> dict:
+    """Phase 11: the paper's run under the dcn preset (hybrid path: the
+    faulty mixer has no fixed form), held to the reference backend over the
+    whole horizon, its crashes in the accountant, the dist engine equal to
+    the sim; a zero-rate scenario bit-identical to the clean hybrid run;
+    a partition on the 8x8 torus held to the reference backend, its
+    connectivity dipping exactly while it is up. Returns per run its
+    dual_step launches."""
+    import numpy as np
+    from repro_torch import ExecConfig, degradation, run
+    from repro_torch.kernels import round_fused as rf
+    cfg = ExecConfig(chunk_rounds=256, compute_regret=True, warmup=False)
+    short = ExecConfig(chunk_rounds=AGREE_ROUNDS, compute_regret=False,
+                       warmup=False)
+    out = {}
+
+    spec = paper_spec(faults="dcn")
+    T = spec.horizon
+    rf.reset_launches()
+    dcn = run(spec, exec=cfg, device=DEVICE)
+    launches = _launches()
+    log(f"faults dcn: hybrid path, {T} rounds, round loop "
+        f"{dcn.wall_clock:.3f} s = {dcn.rounds_per_sec:.1f} rounds/s (clean "
+        f"ring, phase 4: {clean.rounds_per_sec:.1f}); accuracy "
+        f"{dcn.accuracy:.4f}, regret[-1] {float(dcn.regret[-1]):.1f}; "
+        f"launches {launches}; metrics {json.dumps(dcn.metrics['faults'])}"
+        f" | {card}")
+    _require_path(launches, "hybrid", T, "faults dcn")
+    out["dcn"] = launches["dual_step"]
+    for f in ("final_w", "loss", "w_bar_loss", "sparsity", "regret",
+              "connectivity"):
+        require(bool(np.isfinite(np.asarray(getattr(dcn, f))).all()),
+                f"faults dcn: {f} not finite")
+    part = dcn.privacy["participated_rounds"]
+    want = [T - 8 if i in DCN_CRASHED else T for i in range(MAIN_M)]
+    require(part == want, f"faults dcn: participated_rounds {part}, "
+            f"expected {T - 8} for nodes {DCN_CRASHED} and {T} elsewhere")
+    require(dcn.metrics["faults"]["crash_windows"] == len(DCN_CRASHED),
+            "faults dcn: crash windows")
+    require(0.9 < dcn.metrics["faults"]["mean_connectivity"] < 1.0,
+            "faults dcn: mean connectivity out of (0.9, 1)")
+    log(f"faults dcn: degradation against the clean ring (phase 4): "
+        f"{json.dumps(degradation(clean, dcn))}")
+    ref = run(spec.replace(backend="reference"), exec=cfg.replace(
+        compute_regret=False), device=DEVICE)
+    _hold(dcn, ref, f"faults dcn: reference vs fused backend (reference "
+          f"{ref.rounds_per_sec:.1f} rounds/s)", card, rounds=T)
+    rf.reset_launches()
+    dist = run(spec, engine="dist", exec=cfg, device=DEVICE)
+    _require_path(_launches(), "hybrid", T, "faults dcn on dist")
+    out["dcn-dist"] = T
+    _same_run(dist, dcn, "faults dcn: dist vs sim")
+    log(f"faults dcn: dist {dist.rounds_per_sec:.1f} rounds/s; every "
+        f"RunResult field and the final state equal to the sim run, bit "
+        f"for bit | {card}")
+    # rounds/s of the clean ring and the dcn run in turns, 256 rounds
+    # each; then device events a round and idle share of their round body
+    turns = {"clean": [], "dcn": []}
+    for name in ("clean", "dcn", "dcn", "clean", "clean", "dcn"):
+        s = paper_spec(horizon=256,
+                       **({"faults": "dcn"} if name == "dcn" else {}))
+        turns[name].append(run(s, exec=short.replace(chunk_rounds=256),
+                               device=DEVICE).rounds_per_sec)
+    log(f"rounds/s over 256 rounds in turns clean, dcn, dcn, clean, "
+        f"clean, dcn: clean {turns['clean']}, dcn {turns['dcn']} | {card}")
+    for name, s in (("clean fused", paper_spec()),
+                    ("clean hybrid",
+                     paper_spec(backend_options={"mode": "hybrid"})),
+                    ("dcn", paper_spec(faults="dcn"))):
+        per_round, busy, loop = _per_round_profile(s, AGREE_ROUNDS)
+        log(f"{name} round body: {per_round:.2f} device events a round; "
+            f"busy {busy / 1e3:.3f} ms of {loop / 1e3:.3f} ms over "
+            f"{AGREE_ROUNDS} rounds: idle share "
+            f"{max(0.0, 1 - busy / loop):.3f} | {card}")
+
+    # zero rates: bit-identical to the same clean sparse ring, hybrid mode
+    spec = paper_spec(horizon=AGREE_ROUNDS, mixer="sparse",
+                      backend_options={"mode": "hybrid"})
+    base = run(spec, exec=short, device=DEVICE)
+    rf.reset_launches()
+    zero = run(spec.replace(faults="links",
+                            faults_options={"link_rate": 0.0}),
+               exec=short, device=DEVICE)
+    _require_path(_launches(), "hybrid", AGREE_ROUNDS, "faults zero-rate")
+    out["zero-rate"] = AGREE_ROUNDS
+    for f in ("final_w", "loss", "correct", "w_bar_loss", "sparsity",
+              "eps_ledger"):
+        require(np.array_equal(getattr(zero, f), getattr(base, f)),
+                f"faults zero-rate: {f} differs from the clean run")
+    require(np.array_equal(zero.connectivity,
+                           np.ones(AGREE_ROUNDS, np.float32)),
+            "faults zero-rate: connectivity is not all ones")
+    log(f"faults zero-rate (links, link_rate 0, sparse ring, hybrid): "
+        f"{AGREE_ROUNDS} rounds bit for bit the clean run's | {card}")
+
+    # a partition on the 8x8 torus, rounds 16-31, held to the reference
+    spec = paper_spec(horizon=AGREE_ROUNDS, mixer="sparse",
+                      mixer_options={"topology": "torus"},
+                      faults="partition", faults_options=PARTITION)
+    rf.reset_launches()
+    cut = run(spec, exec=short, device=DEVICE)
+    _require_path(_launches(), "hybrid", AGREE_ROUNDS, "faults partition")
+    out["partition"] = AGREE_ROUNDS
+    dips = np.flatnonzero(cut.connectivity < 1.0).tolist()
+    log(f"faults partition: connectivity below 1 on rounds {dips} (min "
+        f"{float(cut.connectivity.min()):.4f}) | {card}")
+    require(dips == list(range(PARTITION["start"], PARTITION["end"])),
+            "faults partition: connectivity must dip exactly on rounds "
+            f"{PARTITION['start']}-{PARTITION['end'] - 1}")
+    ref = run(spec.replace(backend="reference"), exec=short, device=DEVICE)
+    _hold(cut, ref, "faults partition: reference vs fused backend", card)
+    return out
+
+
 PATHS = {"round_stats": "main", "round_update": "main",
-         "dual_step": "hybrid (phase 6, complete, time_varying)",
+         "dual_step": "hybrid (phase 6, complete, time_varying, faults)",
          "pdomd_update": "ops", "hinge_grad": "ops"}
 
 
@@ -1179,15 +1378,18 @@ def main() -> int:
     main_res, launches = main_path(card)
     idle_share(card)
     fused = agreement_phase(main_res, card)
+    long_agreement_phase(main_res, card)
     launches["dual_step"] = hybrid_phase(fused, card)
     dist_launches = dist_phase(main_res, card)
     launches.update(ops_phase(card))
     topologies = topology_phase(card)
     stages = stages_phase(card)
+    faults = faults_phase(main_res, card)
     hybrid = {"hybrid": launches["dual_step"],
               **{name: run["launches"]["dual_step"]
                  for name, run in topologies.items()
-                 if run["path"] == "hybrid"}}
+                 if run["path"] == "hybrid"},
+              **{f"faults-{name}": n for name, n in faults.items()}}
     launches["dual_step"] = sum(hybrid.values())
     for name, entry in kernels.items():
         entry["launches"] = launches[name]

@@ -17,10 +17,19 @@ The distributed engine also runs as a raw strategy on any node-stacked
 pytree (``spec.build_distributed()``: ``GossipDP.init``/``update``), and
 `ops` carries the seed kernels ``pdomd_update`` and ``hinge_grad`` with the
 (rows, 128) tile plumbing of a parameter pytree.
+
+Fault scenarios (`repro_torch.faults`: link drops, partitions, crashes,
+stragglers) ride on the spec and run hybrid on the cuda backend:
+
+    res = run(spec.replace(faults="dcn"))
+    res.connectivity, res.metrics["faults"], res.privacy
 """
-from repro_torch.api import (ExecConfig, GossipDP, GossipState, RunResult,
-                             RunSpec, gossip_mix_tree, ops, per_node_clip,
-                             run)
+from repro_torch.api import (FAULTS, ExecConfig, FaultSpec, GossipDP,
+                             GossipState, RunResult, RunSpec, degradation,
+                             gossip_mix_tree, ops, per_node_clip,
+                             rounds_to_recover, run, wrap_mixer)
 
 __all__ = ["ExecConfig", "RunResult", "RunSpec", "run", "GossipDP",
-           "GossipState", "gossip_mix_tree", "per_node_clip", "ops"]
+           "GossipState", "gossip_mix_tree", "per_node_clip", "ops",
+           "FAULTS", "FaultSpec", "wrap_mixer", "degradation",
+           "rounds_to_recover"]

@@ -5,7 +5,8 @@ gossip-mix -> local sparse update -> L1 prox) decomposed into registry-backed
 stages — Mixer, Mechanism, LocalRule, Clipper, Stream — shared by both
 engines (the dense simulator and the distributed `GossipDP`), and a
 BACKENDS registry that says how the round body executes ("reference" torch
-ops or the fused "cuda" kernels).
+ops or the fused "cuda" kernels), and the FAULTS registry of fault
+scenarios (`repro_torch.faults`).
 
 >>> from repro_torch.api import MIXERS, MECHANISMS, LOCAL_RULES, CLIPPERS
 >>> MIXERS.names()    # doctest: +NORMALIZE_WHITESPACE
@@ -46,6 +47,8 @@ from repro_torch.api.backends import CudaBackend, ReferenceBackend
 from repro_torch.core.gossip import (GossipDP, GossipState, gossip_mix_tree,
                                      per_node_clip)
 from repro_torch.kernels import ops
+from repro_torch.faults import (FAULTS, FaultSpec, degradation,
+                                rounds_to_recover, wrap_mixer)
 
 __all__ = [
     "Registry", "UnknownEntryError", "MIXERS", "MECHANISMS", "LOCAL_RULES",
@@ -64,4 +67,5 @@ __all__ = [
     "RunSpec", "ExecConfig", "RunResult", "run", "make_chunk_program",
     "ReferenceBackend", "CudaBackend",
     "GossipDP", "GossipState", "gossip_mix_tree", "per_node_clip", "ops",
+    "FAULTS", "FaultSpec", "wrap_mixer", "degradation", "rounds_to_recover",
 ]

@@ -15,7 +15,12 @@ engines ("sim" and "dist") work with either backend unchanged:
                 ``round_update`` (from the graph's non-zeros when it has
                 few per row — the ring, torus, hypercube and random
                 graphs; else the dense A, as for a complete ``dense``
-                mixer).
+                mixer). Each row is added in the order the reference
+                backend's mixer adds it — the ring's roll order, ascending
+                columns for the others — and the dual step rounds as its
+                torch ops do: the two backends' iterates part only where
+                the kernel's per-node dot products (added in another
+                order) move a margin across 1 or a sign.
 
 Both backends share each engine's state (`SimState`, or `GossipState` with
 ``theta={"w": ...}``) and draw the noise the same way from the state's
@@ -34,7 +39,14 @@ Modes of "cuda" (``backend_options={"mode": ...}``):
            between ``round_stats`` and ``dual_step``.
   auto   — fused when the mixer lowers to a fixed sparse graph and m fits,
            else hybrid: the complete, disconnected, alternating-ring,
-           time-varying and per-edge-delay mixers have no fixed graph.
+           time-varying and per-edge-delay mixers have no fixed graph, and
+           neither has a faulty one (`repro_torch.faults`: its weights
+           change every round), so a fault scenario always runs hybrid.
+
+Under a fault scenario with crash windows, the crash freeze runs in the
+kernel (``dual_step``; ``round_update`` has the same epilogue) with the
+round's liveness row from the schedule's device table — no host copy per
+round.
 
 >>> from repro_torch.api import BACKENDS
 >>> BACKENDS.names()
@@ -92,16 +104,26 @@ def _check_supported(spec) -> None:
 def _dense_mix_form(mixer, device: torch.device):
     """(A, diag, delay, csr) mixing form for the fused mode, or None when
     the mixer has no fixed sparse lowering. ``csr`` is A's CSR form when
-    the graph has few non-zeros per row (the sparse path), else None."""
+    the graph has few non-zeros per row (the sparse path), else None.
+    A faulty mixer (`repro_torch.faults`) may subclass a fixed-form mixer,
+    but its weights change every round: it has no fixed form."""
+    if getattr(mixer, "schedule", None) is not None:
+        return None
+    from repro_torch.api.mixers import DelayedMixer, RingRollMixer
     from repro_torch.api.shard_node import sparse_graph_and_delay
-    from repro_torch.kernels.round_fused import sparse_mix
+    from repro_torch.kernels.round_fused import MixCSR, sparse_mix
     try:
         graph, delay = sparse_graph_and_delay(mixer)
     except ValueError:
         return None
     A = torch.as_tensor(graph.to_dense(), dtype=torch.float32, device=device)
     diag = torch.as_tensor(graph.diag(), dtype=torch.float32, device=device)
-    return A, diag, delay, sparse_mix(graph, device)
+    csr = sparse_mix(graph, device)
+    inner = mixer.inner if isinstance(mixer, DelayedMixer) else mixer
+    if csr is not None and isinstance(inner, RingRollMixer) and inner.m >= 3:
+        # the kernel adds each row as the reference backend's ring does
+        csr = MixCSR.ring_roll(inner.m, inner.self_weight, device)
+    return A, diag, delay, csr
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,7 +150,8 @@ class CudaBackend:
 
     def _make_round_fn(self, spec, engine: str,
                        device: torch.device) -> Callable:
-        from repro_torch.api.clippers import PerNodeL2Clipper, clip_factor
+        from repro_torch.api.clippers import (PerNodeL2Clipper, clip_factor,
+                                              per_node_norms)
         from repro_torch.core.algorithm1 import RoundOutput, SimState
         from repro_torch.core.gossip import GossipState
         from repro_torch.core.prox import zero_fraction
@@ -162,10 +185,13 @@ class CudaBackend:
             A, diag_v, delay, csr = dense
         else:
             delay = int(getattr(mixer, "delay", 0))
-        alive = torch.ones(m, dtype=torch.float32, device=device)
+        schedule = getattr(mixer, "schedule", None)
+        if schedule is None or not schedule.has_crashes:
+            schedule = None
+            alive = torch.ones(m, dtype=torch.float32, device=device)
 
         def stats_and_coeff(theta, x, y, ctx):
-            dot, xsq, nnz, wbdot, _ = rf.round_stats(
+            dot, _, nnz, wbdot, _ = rf.round_stats(
                 theta, x, ctx.lam_t, m, prox_l1=prox_l1)
             margin = y * dot
             loss = torch.clamp_min(1.0 - margin, 0.0)
@@ -174,8 +200,11 @@ class CudaBackend:
             coeff = -(active * y)
             if clip_norm is not None:
                 # the hinge gradient -active*y*x is rank-1 per node, so its
-                # norm is active * ||x||: the clip is a per-node factor
-                coeff = coeff * clip_factor(active * torch.sqrt(xsq),
+                # norm is active * ||x||: the clip is a per-node factor.
+                # ||x|| is summed as the reference backend's clipper sums
+                # ||grad|| (the kernel's xsq adds in another order, and an
+                # ulp in the factor moves theta)
+                coeff = coeff * clip_factor(active * per_node_norms(x),
                                             clip_norm)
             wb_loss = torch.mean(torch.clamp_min(1.0 - y * wbdot, 0.0))
             # zero COUNT first (exact), then one f32 division — bit-equal
@@ -194,6 +223,8 @@ class CudaBackend:
             ctx = omd.step_context(state.t + 1)
             coeff, loss, correct, wb_loss, sparsity = stats_and_coeff(
                 theta, x, y, ctx)
+            live = (alive if schedule is None
+                    else schedule.alive_f32(state.t, device))
 
             # the engine's noise draw, outside the kernels
             scale = mech.scale(ctx.alpha_t, n)
@@ -209,7 +240,7 @@ class CudaBackend:
                     recv, use_recv = theta, 0
                 theta_next, _ = rf.round_update(
                     A, theta, delta, x, recv.contiguous(), coeff, diag_v,
-                    alive, ctx.alpha_t, use_recv, mech.noise_self, csr=csr)
+                    live, ctx.alpha_t, use_recv, mech.noise_self, csr=csr)
             else:
                 tilde = theta + delta
                 if delay:
@@ -219,7 +250,7 @@ class CudaBackend:
                 else:
                     mixed = mixer.mix(theta, tilde, mech.noise_self, state.t)
                 theta_next = rf.dual_step(mixed.contiguous(), x, theta,
-                                          coeff, alive, ctx.alpha_t)
+                                          coeff, live, ctx.alpha_t)
 
             out = RoundOutput(loss=loss, w_bar_loss=wb_loss,
                               sparsity=sparsity, correct=correct)

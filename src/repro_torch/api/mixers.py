@@ -232,12 +232,14 @@ class SparseMixer(MixerBase):
         deg = np.bincount(dst, minlength=g.m)
         start = np.concatenate([[0], np.cumsum(deg)[:-1]])
         slots = [np.flatnonzero(deg > k) for k in range(int(deg.max()))]
+        # slot k's edges, as indices into the (dst, src)-sorted edge list
+        edges = [start[rows] + k for k, rows in enumerate(slots)]
         set_ = lambda k, v: object.__setattr__(self, k, v)  # noqa: E731
+        set_("_sorted", (dst, src, w))
+        set_("_slot_edges", tuple(torch.as_tensor(e) for e in edges))
         set_("_rows", tuple(torch.as_tensor(rows) for rows in slots))
-        set_("_srcs", tuple(torch.as_tensor(src[start[rows] + k])
-                            for k, rows in enumerate(slots)))
-        set_("_weights", tuple(torch.as_tensor(w[start[rows] + k])
-                               for k, rows in enumerate(slots)))
+        set_("_srcs", tuple(torch.as_tensor(src[e]) for e in edges))
+        set_("_weights", tuple(torch.as_tensor(w[e]) for e in edges))
         set_("_diag", torch.as_tensor(np.asarray(g.diag(), np.float32)))
 
     @property
@@ -251,12 +253,16 @@ class SparseMixer(MixerBase):
                    delay=delay, name=topology)
 
     def apply(self, x, t):
+        return self.slot_sum(_on(self, "_weights", x.device), x)
+
+    def slot_sum(self, weights: tuple, x: torch.Tensor) -> torch.Tensor:
+        """``out[i] = sum_j A[i, j] x[j]`` with slot k's edge weights
+        ``weights[k]``, added slot by slot in ascending source order."""
         dev = x.device
         flat = x.to(torch.float32).reshape(self.m, x[0].numel())
         out = torch.zeros_like(flat)
         for rows, src, w in zip(_on(self, "_rows", dev),
-                                _on(self, "_srcs", dev),
-                                _on(self, "_weights", dev)):
+                                _on(self, "_srcs", dev), weights):
             if rows.numel() == self.m:      # every row has a k-th edge
                 out = torch.addcmul(out, w[:, None], flat[src])
             else:

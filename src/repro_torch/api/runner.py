@@ -7,7 +7,10 @@ strategy (``engine="dist"``, `core.gossip.GossipDP`) — through the spec's
 backend (a Python loop over rounds in place of ``lax.scan``), threads a
 `PrivacyAccountant` into a per-round eps ledger, records the loss,
 accuracy and sparsity trajectories, computes the Definition-3 regret, and
-supports periodic checkpoints with bit-identical resume.
+supports periodic checkpoints with bit-identical resume. Under a fault
+scenario (``RunSpec.faults``) crashed rounds are not charged to a node's
+eps, and the result carries the run's per-round connectivity and
+``metrics["faults"]``.
 
 The run happens on ``device`` — CUDA unless the caller passes
 ``device="cpu"``. The stream's chunks, the per-round outputs and the regret
@@ -136,12 +139,34 @@ class RunResult:
     correct: np.ndarray | None = None     # (T, m) prediction correctness
     sparsity: np.ndarray | None = None    # (T,) zero-fraction of w
     regret: np.ndarray | None = None      # (T,) cumulative (Definition 3)
+    connectivity: np.ndarray | None = None  # (T,) surviving off-diagonal
+    #                                         mixing weight (faulty runs)
     accuracy: float | None = None         # mean correctness, last 20%
     final_w: np.ndarray | None = None     # (m, n) final primal parameters
     final_state: Any = None               # engine state (checkpointable)
+    metrics: dict = dataclasses.field(default_factory=dict)
+
+    def accuracy_curve(self, window: int = 50) -> np.ndarray:
+        """Moving-window mean accuracy over the horizon."""
+        correct = self.correct.mean(axis=1)
+        c = np.cumsum(np.insert(correct, 0, 0.0))
+        return (c[window:] - c[:-window]) / window
+
+    def summary(self) -> dict:
+        return {
+            "engine": self.engine,
+            "stream": self.stream,
+            "rounds": self.rounds,
+            "wall_clock_s": round(self.wall_clock, 3),
+            "rounds_per_sec": round(self.rounds_per_sec, 2),
+            "accuracy": self.accuracy,
+            "regret_final": (None if self.regret is None
+                             else float(self.regret[-1])),
+            "eps_total": self.privacy.get("eps_total"),
+        }
 
     _ARRAY_FIELDS = ("eps_ledger", "loss", "w_bar_loss", "correct",
-                     "sparsity", "regret", "final_w")
+                     "sparsity", "regret", "connectivity", "final_w")
 
     def to_record(self, include_state: bool = False) -> dict:
         """JSON-able dict that `from_record` reconstructs exactly.
@@ -162,6 +187,7 @@ class RunResult:
             "stream": self.stream,
             "accuracy": self.accuracy,
             "privacy": dict(self.privacy),
+            "metrics": dict(self.metrics),
         }
         for f in self._ARRAY_FIELDS:
             v = getattr(self, f)
@@ -180,6 +206,7 @@ class RunResult:
                                   "wall_clock", "rounds_per_sec", "device",
                                   "stream", "accuracy")}
         kw["privacy"] = dict(rec.get("privacy") or {})
+        kw["metrics"] = dict(rec.get("metrics") or {})
         for f in cls._ARRAY_FIELDS:
             v = rec.get(f)
             kw[f] = None if v is None else _decode(v, torch.device("cpu"))
@@ -325,6 +352,12 @@ def run(spec: RunSpec, engine: str = "sim", *,
         eps_per_round=spec.eps if mech.is_private else math.inf,
         disjoint_streams=getattr(stream, "disjoint", False))
 
+    # repro_torch.faults: one resolved faulty mixer for accounting and
+    # metrics — its pattern is a function of FaultSpec.seed and the round,
+    # so it agrees with the one the chunk program mixes with
+    fault_mixer = spec.resolve_mixer() if spec.faults is not None else None
+    fault_sched = getattr(fault_mixer, "schedule", None)
+
     chunk_fn, init_fn = make_chunk_program(spec, engine, dev)
     state = init_fn(spec.seed)
     start = 0
@@ -357,7 +390,12 @@ def run(spec: RunSpec, engine: str = "sim", *,
         else:
             xs, ys = chunk(a, b)
         state, out = chunk_fn(state, xs, ys)
-        accountant.step(b - a)
+        if fault_sched is not None and fault_sched.has_crashes:
+            # crashed rounds release no noised broadcast — not charged
+            accountant.step(b - a,
+                            participation=fault_sched.participation(a, b))
+        else:
+            accountant.step(b - a)
         outs.append(out)
         if cfg.compute_regret:
             xs_all.append(xs)
@@ -384,7 +422,7 @@ def run(spec: RunSpec, engine: str = "sim", *,
 
     done = T - start
     tail = max(1, int(correct.shape[0] * 0.2)) if correct is not None else 1
-    return RunResult(
+    result = RunResult(
         engine=engine,
         rounds=T,
         start_round=start,
@@ -405,3 +443,22 @@ def run(spec: RunSpec, engine: str = "sim", *,
         final_w=_final_primal(spec, engine, state),
         final_state=state,
     )
+    result.metrics = result.summary()
+    if fault_mixer is not None and done > 0:
+        conn = fault_mixer.connectivity(T, dev)[start:]
+        result.connectivity = conn
+        result.metrics["faults"] = _fault_metrics(spec, fault_sched, conn)
+    return result
+
+
+def _fault_metrics(spec: RunSpec, fault_sched, conn: np.ndarray) -> dict:
+    """Per-run degradation summary attached as ``metrics['faults']``."""
+    name = (spec.faults if isinstance(spec.faults, str)
+            else getattr(spec.faults, "name", "faults"))
+    return {
+        "spec": name,
+        "mean_connectivity": float(conn.mean()),
+        "min_connectivity": float(conn.min()),
+        "crash_windows": len(fault_sched.crash_windows),
+        "partitions": len(fault_sched.partitions),
+    }

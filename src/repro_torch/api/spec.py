@@ -2,9 +2,8 @@
 
 Counterpart of `repro.api.spec.RunSpec`, with the same field names and
 defaults. Fields accept registry names or constructed stage instances; every
-registry name of the reference resolves here. ``faults`` (`repro.faults`)
-is not ported yet: anything but None raises NotImplementedError naming
-ROADMAP queue 1.
+registry name of the reference resolves here, the fault scenarios
+(``faults=``, `repro_torch.faults`) included.
 
 >>> from repro_torch.api import RunSpec
 >>> spec = RunSpec(nodes=4, dim=8, mixer="ring", eps=float("inf"))
@@ -15,6 +14,9 @@ ROADMAP queue 1.
 >>> het = spec.replace(delay=2, delay_dist="uniform").resolve_mixer()
 >>> type(het).__name__, 0 <= het.delay <= 2
 ('HeterogeneousDelayMixer', True)
+>>> faulty = spec.replace(faults="links").resolve_mixer()
+>>> type(faulty).__name__, faulty.schedule.spec.link_rate
+('FaultySparseMixer', 0.05)
 """
 from __future__ import annotations
 
@@ -68,7 +70,8 @@ class RunSpec:
              distribution, capped at ``delay``. None keeps the uniform
              delay.
     faults / faults_options:
-             not ported (ROADMAP queue 1); anything but None raises.
+             fault scenario (`repro_torch.faults`): a FAULTS name or a
+             FaultSpec; the resolved mixer is wrapped onto its schedule.
     backend / backend_options:
              how the round body executes (BACKENDS name or instance):
              'reference' (default) is torch ops; 'cuda' the fused Hopper
@@ -107,14 +110,24 @@ class RunSpec:
     backend: Any = "reference"
     backend_options: dict = dataclasses.field(default_factory=dict)
 
-    def __post_init__(self):
-        if self.faults is not None:
-            raise not_ported("faults= (repro.faults)")
-
     # -- stage resolution ----------------------------------------------------
+
+    def resolve_faults(self):
+        """Compiled `repro_torch.faults.FaultSchedule`, or None without
+        faults."""
+        if self.faults is None:
+            return None
+        from repro_torch.faults import FAULTS
+        fault_spec = FAULTS.build(self.faults, self.faults_options)
+        return fault_spec.compile(m=self.nodes, horizon=self.horizon)
 
     def resolve_mixer(self) -> Mixer:
         if self.delay_dist is not None:
+            if self.faults is not None:
+                raise ValueError(
+                    "faults do not compose with delay_dist (per-edge "
+                    "heterogeneous delays) — model slow links as FaultSpec "
+                    "stragglers instead")
             if not isinstance(self.mixer, str):
                 raise ValueError(
                     "delay_dist needs a topology NAME for the dense per-edge "
@@ -148,6 +161,10 @@ class RunSpec:
                 f"mixer already carries delay={mixer_delay}")
         if self.delay and not mixer_delay:
             mixer = DelayedMixer(inner=mixer, delay=self.delay)
+        faults = self.resolve_faults()
+        if faults is not None:
+            from repro_torch.faults import wrap_mixer
+            mixer = wrap_mixer(mixer, faults)
         return mixer
 
     def resolve_mechanism(self) -> Mechanism:

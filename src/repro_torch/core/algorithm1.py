@@ -94,7 +94,8 @@ class Algorithm1:
     @property
     def delay(self) -> int:
         """WAN staleness in rounds, declared by the mixer (RunSpec.delay
-        wraps it in DelayedMixer); the history ring is delay + 1 deep."""
+        wraps it in DelayedMixer; a faulty mixer adds its stragglers'
+        deepest lag); the history ring is delay + 1 deep."""
         return int(getattr(self.mixer, "delay", 0))
 
     @property
@@ -154,6 +155,14 @@ class Algorithm1:
                                    self.mechanism.noise_self, state.t)
         theta_next = self.local_rule.dual_step(mixed, grad, ctx)
 
+        # Fault injection (repro_torch.faults): a crashed node freezes its
+        # local update and rejoins from this very state once its window
+        # ends. Specs without crash windows pay nothing.
+        fault_sched = getattr(self.mixer, "schedule", None)
+        if fault_sched is not None and fault_sched.has_crashes:
+            alive = fault_sched.alive_mask(state.t, theta_next.device)
+            theta_next = torch.where(alive[:, None], theta_next, state.theta)
+
         # Definition 3 regret is w.r.t. the average parameter w_bar.
         w_bar = torch.mean(w, dim=0, keepdim=True)
         wb_loss = torch.mean(torch.clamp_min(
@@ -163,3 +172,30 @@ class Algorithm1:
                           sparsity=prox.sparsity(w), correct=correct)
         return SimState(theta=theta_next, t=state.t + 1,
                         generator=state.generator, history=history), out
+
+    # -- a whole horizon ---------------------------------------------------------
+
+    def _scan(self, seed: int, xs, ys, device):
+        dev = resolve_device(device)
+        state = self.init(seed, dev)
+        outs = []
+        for k in range(xs.shape[0]):
+            state, out = self.round(state, (torch.as_tensor(xs[k]).to(dev),
+                                            torch.as_tensor(ys[k]).to(dev)))
+            outs.append(out)
+        return state, RoundOutput(*(torch.stack(f) for f in zip(*outs)))
+
+    def run(self, seed: int, xs, ys,
+            device: str | torch.device = "cuda") -> RoundOutput:
+        """Run T rounds from the zero state on ``device`` (CUDA unless the
+        caller asks for the CPU). xs (T, m, n), ys (T, m). Returns the
+        stacked per-round outputs."""
+        return self._scan(seed, xs, ys, device)[1]
+
+    def final_params(self, seed: int, xs, ys,
+                     device: str | torch.device = "cuda"):
+        """Like run() but also returns the final primal parameters (m, n),
+        recovered with the schedule of the last round."""
+        state, outs = self._scan(seed, xs, ys, device)
+        w = self.local_rule.primal(state.theta, self._ctx(state.t))
+        return w, outs

@@ -186,11 +186,11 @@ class GossipDP:
         # their local state until the crash window ends
         fault_sched = getattr(self.mixer, "schedule", None)
         if fault_sched is not None and fault_sched.has_crashes:
-            alive = torch.as_tensor(fault_sched.alive_mask(state.t))
+            alive = fault_sched.alive_mask(
+                state.t, tree.leaves(theta_next)[0].device)
             theta_next = tree.tree_map(
                 lambda nxt, cur: torch.where(
-                    alive.to(nxt.device).reshape(
-                        (-1,) + (1,) * (nxt.dim() - 1)), nxt, cur),
+                    alive.reshape((-1,) + (1,) * (nxt.dim() - 1)), nxt, cur),
                 theta_next, state.theta)
         new_state = GossipState(theta=theta_next, t=state.t + 1,
                                 generator=state.generator,

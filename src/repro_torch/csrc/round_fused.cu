@@ -101,7 +101,8 @@
 //     What bounds it: at m=64 the ragged spread of 313 tiles over 132 SMs
 //     (2 or 3 each); at m=1,024 the fp32 FMA rate.
 //   Both paths share one epilogue (finish) with explicit fmaf, so they
-//   round alike: noise-add, self correction, dual step, crash freeze.
+//   round alike: noise-add, self correction, dual step, crash freeze. The
+//   dual step rounds after each operation (dual), as torch ops do.
 //
 // dual_step    — replaces dual_step / _dual_kernel (:240 and :249).
 //   next = mixed - alpha*(coeff*x), dead rows keep theta; elementwise.
@@ -426,6 +427,15 @@ stats_kernel(const float* __restrict__ theta, const float* __restrict__ x,
   if (tid == 0) *counter = 0u;
 }
 
+// the OMD dual step mixed - alpha (coeff x), rounded after each operation
+// as the torch ops of the reference backend round it (the clipped gradient
+// coeff x, then alpha times it, then the difference): no contraction into
+// a fused multiply-add, or the two backends part by an ulp each round
+__device__ __forceinline__ float dual(float mixed, float cf, float xv,
+                                      float alpha) {
+  return __fsub_rn(mixed, __fmul_rn(alpha, __fmul_rn(cf, xv)));
+}
+
 // next = (A r)_i + diag_i (s - r) - alpha (coeff_i x), frozen rows keep
 // theta; spelled with explicit fmaf so both mix paths round alike
 __device__ __forceinline__ float finish(float acc, float th, float tl,
@@ -434,7 +444,7 @@ __device__ __forceinline__ float finish(float acc, float th, float tl,
                                         bool live) {
   const float s = noise_self ? tl : th;
   const float mixed = fmaf(dg, s - rv, acc);
-  const float nxt = fmaf(-alpha, cf * xv, mixed);
+  const float nxt = dual(mixed, cf, xv, alpha);
   return live ? nxt : th;
 }
 
@@ -637,7 +647,7 @@ dual_kernel(const float* __restrict__ mixed, const float* __restrict__ x,
   for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
        e += stride) {
     const int64_t r = e / n;
-    const float nxt = mixed[e] - alpha * (coeff[r] * x[e]);
+    const float nxt = dual(mixed[e], coeff[r], x[e], alpha);
     out[e] = alive[r] > 0.f ? nxt : theta[e];
   }
 }

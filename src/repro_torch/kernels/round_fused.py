@@ -25,18 +25,19 @@ reset by that block) sums every block's per-node partials in a fixed order
 — no float atomics, bit-stable from run to run.
 
 ``round_update`` mixes one of two ways. Given ``csr`` (a `MixCSR`, A's
-non-zeros in ascending column order; `sparse_mix` builds one from a
-`SparseGraph` when no row holds more than ``SPARSE_MAX_ROW_NNZ`` = 16 of
-them, as for the ring) it sums only the non-zeros, with neighbours' r from
-shared memory; given only A it runs the dense tiled product. Both add in
-ascending k with fmaf from 0, so on the same A they agree bit for bit.
+non-zeros; `sparse_mix` builds one from a `SparseGraph` when no row holds
+more than ``SPARSE_MAX_ROW_NNZ`` = 16 of them, as for the ring) it sums
+only the non-zeros in the order they are stored, with neighbours' r from
+shared memory; given only A it runs the dense tiled product. Both add with
+fmaf from 0, the dense path in ascending k, so on the same A and a CSR
+form in ascending columns they agree bit for bit.
 
 Each wrapper checks device, dtype (float32), shape and contiguity and raises
 on anything its kernel does not take. Given CPU tensors it computes its
-plain PyTorch version (``*_plain``, beside it; ``round_update_plain`` is
-``A @ r`` whichever path the card would take) — that is how the CPU tests
-run the fused backend. Given CUDA tensors it allocates its outputs with
-``torch.empty``, launches the kernel on the current stream and raises if the
+plain PyTorch version (``*_plain``, beside it; ``round_update_plain``
+mixes with ``A @ r``, or adds each row in the CSR form's order when given
+one, as the sparse path does) — that is how the CPU tests run the fused
+backend. Given CUDA tensors it allocates its outputs with ``torch.empty``, launches the kernel on the current stream and raises if the
 launch failed; it never falls back. ``<wrapper>.launches`` counts kernel
 launches (``round_update.sparse_launches`` those of the sparse path;
 ``reset_launches()`` zeroes them), so a run can show that it went through
@@ -191,13 +192,18 @@ def round_stats(theta: torch.Tensor, x: torch.Tensor, lam_t: float,
 class MixCSR:
     """CSR form of a fixed (m, m) mixing matrix, for ``round_update``'s
     sparse path: row i's non-zeros are ``weights[indptr[i]:indptr[i+1]]``
-    at columns ``indices[...]``, strictly ascending. Built once per run
-    (`from_graph`); construction checks the types and shapes and, on one
-    host copy, the values, and raises on anything malformed."""
+    at columns ``indices[...]``. The kernel adds a row's terms in the
+    order they are stored: with ``order="ascending"`` (`from_graph`) the
+    columns rise strictly in each row, the order of a dense product; with
+    ``order="stored"`` (`ring_roll`: the order of the ring's torch-op
+    mixer) no column repeats in a row. Built once per run; construction
+    checks the types and shapes and, on one host copy, the values, and
+    raises on anything malformed."""
 
     indptr: torch.Tensor     # (m + 1,) int32
     indices: torch.Tensor    # (nnz,) int32
     weights: torch.Tensor    # (nnz,) float32
+    order: str = "ascending"
 
     def __post_init__(self):
         for name, dtype in (("indptr", torch.int32), ("indices", torch.int32),
@@ -229,8 +235,17 @@ class MixCSR:
         if nnz and (idx.min() < 0 or idx.max() >= m):
             raise ValueError(f"MixCSR.indices out of range for m={m}")
         rows = np.repeat(np.arange(m), np.diff(ptr))
-        if np.any(np.diff(rows * m + idx) <= 0):
-            raise ValueError("MixCSR.indices must rise strictly in each row")
+        if self.order == "ascending":
+            if np.any(np.diff(rows * m + idx) <= 0):
+                raise ValueError("MixCSR.indices must rise strictly in each "
+                                 "row")
+        elif self.order == "stored":
+            if np.unique(rows * m + idx).size != nnz:
+                raise ValueError("MixCSR.indices must not repeat a column "
+                                 "in a row")
+        else:
+            raise ValueError(f"MixCSR.order must be 'ascending' or 'stored',"
+                             f" got {self.order!r}")
 
     @property
     def m(self) -> int:
@@ -253,6 +268,29 @@ class MixCSR:
                                     device=dev))
 
 
+    @classmethod
+    def ring_roll(cls, m: int, self_weight: float, device) -> "MixCSR":
+        """The ring's CSR form (m >= 3) with each row's terms in the order
+        `RingRollMixer` adds them — self, then node i-1, then node i+1 —
+        so the kernel rounds as the reference backend's ring (a row added
+        in ascending columns rounds its wrap-around rows 0 and m-1
+        otherwise)."""
+        if m < 3:
+            raise ValueError(f"the ring's roll order needs m >= 3, got {m}")
+        i = np.arange(m)
+        nw = np.float32((1.0 - self_weight) / 2.0)
+        dev = torch.device(device)
+        return cls(
+            indptr=torch.as_tensor(3 * np.arange(m + 1, dtype=np.int32),
+                                   device=dev),
+            indices=torch.as_tensor(np.stack(
+                [i, (i - 1) % m, (i + 1) % m], axis=1).ravel().astype(
+                    np.int32), device=dev),
+            weights=torch.as_tensor(np.tile(np.asarray(
+                [self_weight, nw, nw], np.float32), m), device=dev),
+            order="stored")
+
+
 def sparse_mix(graph, device) -> MixCSR | None:
     """``graph``'s CSR form when no row holds more than
     ``SPARSE_MAX_ROW_NNZ`` non-zeros (the sparse path pays then) and the
@@ -263,13 +301,30 @@ def sparse_mix(graph, device) -> MixCSR | None:
     return MixCSR.from_graph(graph, device)
 
 
+def _csr_product(csr: MixCSR, r: torch.Tensor) -> torch.Tensor:
+    """``A @ r`` from A's CSR form, each row's terms added in their stored
+    order (the sparse path's order), one multiply-add per term."""
+    ptr = csr.indptr.long()
+    idx, w = csr.indices.long(), csr.weights
+    deg = ptr[1:] - ptr[:-1]
+    out = torch.zeros_like(r)
+    for k in range(int(deg.max())):
+        rows = torch.nonzero(deg > k).flatten()
+        e = ptr[rows] + k
+        out[rows] = torch.addcmul(out[rows], w[e][:, None], r[idx[e]])
+    return out
+
+
 def round_update_plain(A, theta, delta, x, recv, coeff, diag, alive,
-                       alpha_t, use_recv, noise_self):
-    """Plain PyTorch version of `round_update`: (theta_next, tilde)."""
+                       alpha_t, use_recv, noise_self, csr=None):
+    """Plain PyTorch version of `round_update`: (theta_next, tilde). With
+    ``csr`` the mix adds each row in the CSR form's order, as the sparse
+    path does; without it, ``A @ r``."""
     tilde = theta + delta
     r = recv if use_recv else tilde
     s = tilde if noise_self else theta
-    mixed = A @ r + diag[:, None] * (s - r)
+    mixed = (A @ r if csr is None else _csr_product(csr, r)) \
+        + diag[:, None] * (s - r)
     nxt = mixed - float(alpha_t) * (coeff[:, None] * x)
     return torch.where(alive[:, None] > 0, nxt, theta), tilde
 
@@ -305,7 +360,8 @@ def round_update(A: torch.Tensor, theta: torch.Tensor, delta: torch.Tensor,
             raise ValueError(f"csr is on {csr.device}, expected {dev}")
     if not on_card(dev, "round_update"):
         return round_update_plain(A, theta, delta, x, recv, coeff, diag,
-                                  alive, alpha_t, use_recv, noise_self)
+                                  alive, alpha_t, use_recv, noise_self,
+                                  csr=csr)
     if csr is not None and m > SPARSE_MAX_NODES:
         raise ValueError(f"round_update's sparse path holds all m rows of a "
                          f"column slab in a block: m <= {SPARSE_MAX_NODES}, "

@@ -1,5 +1,5 @@
-"""The port as a package: its import boundary, its device rule, and the
-stages it refuses until they are ported."""
+"""The port as a package: its import boundary, its device rule, and what
+it refuses until it is ported."""
 import ast
 import pathlib
 import subprocess
@@ -156,13 +156,24 @@ def test_registries_name_what_the_slice_carries():
 @pytest.mark.parametrize("value", ["none", "links", "partition", "crash",
                                    "dcn"])
 def test_unported_stages_raise_naming_the_roadmap(value):
-    """`repro.faults` is the one stage not ported: every name of the
-    reference's FAULTS registry is refused."""
+    """Every name of the reference's FAULTS registry resolves in the port
+    and runs on both engines and both backends; what of `repro.faults` is
+    still unported — the node-sharded faulty mixer — raises, naming the
+    ROADMAP."""
+    import repro_torch.faults as faults
     from repro.faults import FAULTS
-    assert value in FAULTS.names()
+    assert value in FAULTS.names() and value in faults.FAULTS.names()
+    spec = RunSpec(**SPEC, faults=value)
+    assert spec.resolve_faults().spec.name == value
+    for backend in ("reference", "cuda"):
+        for engine in ("sim", "dist"):
+            res = run(spec.replace(backend=backend), engine=engine,
+                      exec=CFG, device="cpu")
+            assert res.metrics["faults"]["spec"] == value
+            assert res.connectivity.shape == (4,)
+            assert np.isfinite(res.final_w).all()
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        spec = RunSpec(**SPEC, faults=value)
-        run(spec, exec=CFG, device="cpu")
+        faults.FaultyShardedSparseMixer
 
 
 def test_dist_engine_is_not_ported():

@@ -237,3 +237,34 @@ def test_round_update_refuses_a_csr_that_does_not_fit():
         rf.round_update(*(a.to("meta") if isinstance(a, torch.Tensor) else a
                           for a in args),
                         csr=rf.MixCSR.from_graph(ring_edges(m), "cpu"))
+
+
+def test_ring_roll_csr_holds_the_ring_in_its_mixers_order():
+    """`MixCSR.ring_roll` stores each row as `RingRollMixer` adds it (self,
+    node i-1, node i+1), the same non-zeros as the ring's ascending CSR
+    form; the fused backend lowers a ring mixer to it."""
+    from repro_torch.api import MIXERS
+    from repro_torch.api.backends import _dense_mix_form
+    m = 7
+    roll = rf.MixCSR.ring_roll(m, 0.5, "cpu")
+    asc = rf.MixCSR.from_graph(ring_edges(m), "cpu")
+    assert roll.order == "stored" and asc.order == "ascending"
+    ptr, idx = roll.indptr.numpy(), roll.indices.numpy()
+    assert idx[ptr[0]:ptr[1]].tolist() == [0, m - 1, 1]
+    assert idx[ptr[3]:ptr[4]].tolist() == [3, 2, 4]
+    dense = np.zeros((m, m), np.float32)
+    for i in range(m):
+        dense[i, idx[ptr[i]:ptr[i + 1]]] = roll.weights.numpy()[
+            ptr[i]:ptr[i + 1]]
+    np.testing.assert_array_equal(dense, ring_edges(m).to_dense())
+    csr = _dense_mix_form(MIXERS.build("ring", m=m), torch.device("cpu"))[3]
+    assert torch.equal(csr.indices, roll.indices)
+    csr = _dense_mix_form(MIXERS.build("sparse", m=m), torch.device("cpu"))[3]
+    assert torch.equal(csr.indices, asc.indices)
+    with pytest.raises(ValueError):           # a column twice in a row
+        rf.MixCSR(roll.indptr, torch.zeros_like(roll.indices), roll.weights,
+                  order="stored")
+    with pytest.raises(ValueError):
+        rf.MixCSR(*_ring_csr_parts(), order="shuffled")
+    with pytest.raises(ValueError):
+        rf.MixCSR.ring_roll(2, 0.5, "cpu")

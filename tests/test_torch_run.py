@@ -218,3 +218,24 @@ def test_warmup_leaves_the_run_unchanged():
                device="cpu")
     for f in ("final_w", "loss", "correct", "sparsity", "regret"):
         np.testing.assert_array_equal(getattr(warm, f), getattr(cold, f))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_backends_agree_bit_for_bit_over_a_long_horizon(seed):
+    """The fused backend mixes each row of the ring in the order the
+    reference backend's `RingRollMixer` adds it, rounds the dual step as
+    its torch ops do and takes the clip's norm from the same reduction, so
+    the iterates agree bit for bit round after round (here through the
+    kernels' plain versions; on the card `chip_smoke.py` holds the paper's
+    run at seeds 0-2)."""
+    spec = RunSpec(nodes=16, dim=64, horizon=400, eps=1.0,
+                   calibration="coordinate", alpha0=1.0, lam=1e-3,
+                   seed=seed, backend="cuda")
+    cfg = ExecConfig(chunk_rounds=100, warmup=False, compute_regret=False)
+    fused = run(spec, exec=cfg, device="cpu")
+    ref = run(spec.replace(backend="reference"), exec=cfg, device="cpu")
+    for f in ("final_w", "correct", "sparsity", "loss", "eps_ledger"):
+        np.testing.assert_array_equal(getattr(fused, f), getattr(ref, f),
+                                      err_msg=f)
+    assert np.abs(fused.w_bar_loss - ref.w_bar_loss).max() <= ATOL
+    assert 0 < fused.sparsity.max() and fused.sparsity.min() < 1

@@ -51,21 +51,26 @@ print("RESULT " + json.dumps(res))
 """
 
 
-def run(root: Path) -> dict:
-    proc = subprocess.run([sys.executable, "-c", CHILD], cwd=root,
+def run(root: Path, child: str = CHILD) -> dict:
+    """The RESULT line of ``child`` run in a fresh process in ``root``."""
+    proc = subprocess.run([sys.executable, "-c", child], cwd=root,
                           capture_output=True, text=True, timeout=600)
     if proc.returncode:
-        raise SystemExit(f"hinge_ab: the run in {root} failed:\n"
+        raise SystemExit(f"the run in {root} failed:\n"
                          f"{proc.stdout}\n{proc.stderr}")
     line = [ln for ln in proc.stdout.splitlines()
             if ln.startswith("RESULT ")][-1]
     return json.loads(line[len("RESULT "):])
 
 
-def main() -> int:
-    if len(sys.argv) != 2:
-        raise SystemExit(__doc__)
-    other = Path(sys.argv[1]).resolve()
+def in_turns(argv: list[str], child: str = CHILD, what: str = "B",
+             doc: str = __doc__) -> int:
+    """Run ``child`` in OTHER_ROOT (``argv[1]``) and this checkout in turns
+    OTHER, THIS, THIS, OTHER; print each run and one JSON line of every
+    sample with the card's name and power limit."""
+    if len(argv) != 2:
+        raise SystemExit(doc)
+    other = Path(argv[1]).resolve()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -73,11 +78,11 @@ def main() -> int:
     samples = {"other": [], "this": []}
     for label, root in (("other", other), ("this", THIS), ("this", THIS),
                         ("other", other)):
-        res = run(root)
+        res = run(root, child)
         samples[label].append(res)
         print(f"{label} ({root}): " + "; ".join(
-            f"B={B}: {r['ms'] * 1e3:.2f} us device, "
-            f"{r['call_ms'] * 1e3:.2f} us per call" for B, r in res.items()),
+            f"{what}={k}: {r['ms'] * 1e3:.2f} us device, "
+            f"{r['call_ms'] * 1e3:.2f} us per call" for k, r in res.items()),
             flush=True)
     print(smi)
     print(json.dumps({"card": smi, "other": str(other), "this": str(THIS),
@@ -86,4 +91,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(in_turns(sys.argv))
