@@ -42,7 +42,14 @@ Phases (any failure raises, and the script exits non-zero):
                with the hypercube and random A); ``hinge_grad`` also
                at (1, 10,112), and each small batch beside one
                ``torch.mv`` of the same x and w (a floor: one cuBLAS pass
-               that reads x once).
+               that reads x once). Then the seed axis of ``round_stats`` and
+               ``round_update`` (`run_batch`'s launches): at S = 3 and 8
+               seeds of (64, 10,000), each batched launch (ring and
+               hypercube CSR, softmax A) must equal S one-seed launches on
+               the seeds' slices bit for bit and hold to its batched plain
+               version, ``round_stats`` one kernel and no memset per
+               call; each timed at S = 1, 3, 8 beside its bound and beside
+               S back-to-back one-seed launches.
 4. main path — ``repro_torch.run`` at the paper's scale (m=64, n=10,000,
                T=1,562 rounds = 100,000 samples, social_sparse, ring,
                Laplace eps=1 coordinate, L2 clip 1, alpha0=1, lam=1e-3),
@@ -96,6 +103,20 @@ Phases (any failure raises, and the script exits non-zero):
                in hybrid mode, and 64 of a partition (rounds 16-31, cut at
                node 32) on the 8x8 torus, held to the reference backend,
                its connectivity below 1 exactly while the cut is up.
+12. batch    — ``run_batch`` of the paper's run at seeds 0, 1, 2 (fused,
+               regret on): ``round_stats`` and ``round_update`` launch once
+               a round for the three seeds (1,562 each, all sparse), every
+               seed's RunResult equals its own ``run()`` field by field and
+               the dist batch the sim batch; 64 rounds of a ``complete``
+               batch and 256 of a ``dcn`` batch (hybrid) equal per seed to
+               ``run()``; seed-rounds/s of batches of 3 and 8 seeds against
+               three sequential runs, in turns, three times each.
+13. sweep    — the paper's Fig. 2 axis (eps 0.1, 1, 10, inf x seeds 0-2,
+               paper scale, regret on) through ``repro_torch.sweep`` into a
+               temporary store; reloaded with ``reuse=True,
+               require_store=True`` it must run nothing and give the same
+               accuracy and regret aggregates (logged per point, mean +-
+               std over the seeds).
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line (time,
 bound, plain-version time and launches of every kernel), and last
@@ -419,21 +440,23 @@ def _device_ms(fn, reps: int = 20, repeats: int = 5) -> float:
     return statistics.median(samples)
 
 
-def _work(name: str, m: int, n: int, nnz: int | None = None
-          ) -> tuple[int, int]:
+def _work(name: str, m: int, n: int, nnz: int | None = None,
+          seeds: int = 1) -> tuple[int, int]:
     """(bytes, flops) the function needs at the main path's flags: each
     input read once, each output written once. For ``round_update`` the
     mix is the dense (m, m) A (m^2 floats in, 2 m^2 n flops) unless ``nnz``
     is given: then A's CSR form with nnz non-zeros (m + 1 + 2 nnz words
-    in, 2 nnz n flops) — the ring's 3 m at the main path."""
-    mn = m * n
+    in, 2 nnz n flops) — the ring's 3 m at the main path. ``seeds`` > 1:
+    a batched launch, every per-seed array S times, the mix and diag once
+    (the seeds share them)."""
+    mn, S = m * n, seeds
     if name == "round_stats":      # theta, x in; dot, xsq, nnz, wbdot, wsum
-        return 4 * (2 * mn + 4 * m + n), 12 * mn
-    if name.startswith("round_update"):   # A, theta, delta, x, coeff, diag,
-        a_words, mix_flops = ((m * m, 2 * m * m * n) if nnz is None  # alive
-                              else (m + 1 + 2 * nnz, 2 * nnz * n))   # in;
-        return (4 * (a_words + 3 * mn + 3 * m + 2 * mn),  # next, tilde out
-                mix_flops + 8 * mn)
+        return S * 4 * (2 * mn + 4 * m + n), S * 12 * mn
+    if name.startswith("round_update"):   # A, diag shared; theta, delta, x,
+        a_words, mix_flops = ((m * m, 2 * m * m * n) if nnz is None  # coeff,
+                              else (m + 1 + 2 * nnz, 2 * nnz * n))   # alive
+        return (4 * (a_words + m + S * (3 * mn + 2 * m + 2 * mn)),   # in;
+                S * (mix_flops + 8 * mn))       # next, tilde out per seed
     if name == "pdomd_update":     # four (rows, 128) in; w, theta_new out
         return 4 * 6 * mn, 10 * mn
     if name == "hinge_grad":       # x, y, w in; loss, margin, g out
@@ -612,6 +635,147 @@ def kernel_phase(card: str):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return results
+
+
+# -- 3b. the round kernels' seed axis ---------------------------------------------
+
+BATCH_SIZES = (3, 8)        # seeds of a batched launch held to S launches
+BATCH_TIMED = (1, 3, 8)     # and timed
+BATCH_MIXES = ("ring", "hypercube", "softmax")   # sparse, sparse, dense
+
+
+def _batch_inputs(S: int, seed: int, dev) -> dict:
+    """S seeds' round inputs at the main path's shape, each seed with one
+    crash-frozen row of its own."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    m, n = MAIN_M, MAIN_N
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    alive = torch.ones((S, m), device=dev)
+    alive[torch.arange(S), (7 * torch.arange(S) + 3) % m] = 0.0
+    return dict(theta=randn(S, m, n), x=randn(S, m, n) / math.sqrt(n),
+                delta=0.1 * randn(S, m, n), recv=randn(S, m, n),
+                coeff=randn(S, m), alive=alive)
+
+
+def _batch_calls(rf, b: dict, mixes: dict, mix: str, use_recv=0,
+                 noise_self=True):
+    """(batched kernel call, S one-seed kernel calls, batched plain call)
+    of round_stats and of round_update with ``mix``'s A (its CSR form for
+    the fixed graphs: the sparse path; the softmax A: the dense path)."""
+    S = b["theta"].shape[0]
+    A, diag, csr = mixes[mix]
+    stats = (b["theta"], b["x"], 0.5, MAIN_M)
+    upd = lambda d: (A, d["theta"], d["delta"], d["x"], d["recv"],  # noqa
+                     d["coeff"], diag, d["alive"], 0.25, use_recv,
+                     noise_self)
+    seeds = [{k: v[i] for k, v in b.items()} for i in range(S)]
+    return {
+        "round_stats": (
+            lambda: rf.round_stats(*stats),
+            lambda: [rf.round_stats(d["theta"], d["x"], 0.5, MAIN_M)
+                     for d in seeds],
+            lambda: rf.round_stats_plain(*stats)),
+        "round_update": (
+            lambda: rf.round_update(*upd(b), csr=csr),
+            lambda: [rf.round_update(*upd(d), csr=csr) for d in seeds],
+            lambda: rf.round_update_plain(*upd(b), csr=csr)),
+    }
+
+
+def _mixes(d: dict) -> dict:
+    """name -> (A, diag, CSR form or None) from an `_inputs` set."""
+    out = {g: d["graphs"][g] for g in ("ring", "hypercube")}
+    out["softmax"] = (d["A"], d["diag"], None)
+    return out
+
+
+def batch_kernel_phase(card: str) -> dict:
+    """The seed axis of round_stats and round_update (`run_batch`'s
+    launches) at S = 3 and 8 and the main path's shape: each batched
+    launch equal bit for bit to S one-seed launches on the seeds' slices,
+    and held to its batched plain version; round_stats one kernel and no
+    memset per batched call. Then each timed at S = 1, 3, 8 beside its
+    bound and beside S back-to-back one-seed launches. Returns the entries
+    for the kernels line."""
+    import torch
+    from repro_torch.kernels import round_fused as rf
+    dev = torch.device(DEVICE)
+    mixes = _mixes(_inputs(MAIN_M, MAIN_N, seed=2, dev=dev))
+    names = {"ring": "round_update", "hypercube": "round_update_hypercube",
+             "softmax": "round_update_dense"}
+    errs = {"round_stats": 0.0, **{v: 0.0 for v in names.values()}}
+    for S in BATCH_SIZES:
+        b = _batch_inputs(S, seed=100 + S, dev=dev)
+        for mix in BATCH_MIXES:
+            flags = UPDATE_FLAGS if mix == "ring" else ((0, True),)
+            for use_recv, noise_self in flags:
+                calls = _batch_calls(rf, b, mixes, mix, use_recv, noise_self)
+                for kernel, (batched, one, plain) in calls.items():
+                    if kernel == "round_stats" and (
+                            mix != "ring" or use_recv or not noise_self):
+                        continue
+                    where = (f"S={S} m={MAIN_M} n={MAIN_N} mix={mix} "
+                             f"use_recv={use_recv} noise_self={noise_self}")
+                    got, ones = batched(), one()
+                    for k, out in enumerate(got):
+                        require(torch.equal(out, torch.stack(
+                            [o[k] for o in ones])), f"batched {kernel} "
+                            f"output {k} differs from {S} one-seed "
+                            f"launches at {where}")
+                    name = kernel if kernel == "round_stats" else names[mix]
+                    errs[name] = max(errs[name], _compare(name, got,
+                                                          plain(), where))
+        names_ev = _device_events(_batch_calls(rf, b, mixes, "ring")[
+            "round_stats"][0])
+        require(len(names_ev) == 5 and not any("emset" in e
+                                               for e in names_ev),
+                f"batched round_stats (S={S}): 5 calls put {len(names_ev)} "
+                f"device events on the card: {sorted(set(names_ev))}")
+        del b
+        log(f"batched round_stats and round_update (ring and hypercube "
+            f"CSR, softmax A) at S={S}, {MAIN_M}x{MAIN_N}: bit for bit {S} "
+            f"one-seed launches, within tolerance of the batched plain "
+            f"versions; round_stats one kernel and no memset per call")
+    torch.cuda.synchronize()
+
+    out = {"round_stats": {}, "round_update": {}}
+    nnz_ring = int(mixes["ring"][2].indices.numel())
+    for S in BATCH_TIMED:
+        # input sets rotated past the 50 MB L2, as the one-seed timing does
+        sets = [_batch_inputs(S, seed=1000 * S + k, dev=dev)
+                for k in range(max(3, -(-24 // S)))]
+        for kernel in ("round_stats", "round_update"):
+            calls = [_batch_calls(rf, b, mixes, "ring")[kernel]
+                     for b in sets]
+            ms = _device_ms(_rotate([c[0] for c in calls]))
+            one_ms = (ms if S == 1 else
+                      _device_ms(_rotate([c[1] for c in calls])))
+            nbytes, flops = _work(kernel, MAIN_M, MAIN_N,
+                                  nnz_ring if kernel == "round_update"
+                                  else None, seeds=S)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+            bound_ms = max(t_bytes, t_ops) * 1e3
+            out[kernel][f"S{S}"] = dict(
+                ms=ms, one_seed_launches_ms=one_ms, bound_ms=bound_ms,
+                bytes=nbytes, max_abs_err=errs[kernel])
+            what = (f"{kernel} (ring A, sparse path)"
+                    if kernel == "round_update" else kernel)
+            log(f"batched {what} S={S}: {ms * 1e3:.2f} us device time per "
+                f"launch at "
+                f"{S}x{MAIN_M}x{MAIN_N} | {nbytes / 1e6:.2f} MB, bound "
+                f"{bound_ms * 1e3:.2f} us | {S} back-to-back one-seed "
+                f"launches {one_ms * 1e3:.2f} us | {card}")
+        del sets, calls
+        torch.cuda.synchronize()
+    out["round_update"]["errs"] = {k: v for k, v in errs.items()
+                                   if k != "round_stats"}
+    torch.cuda.empty_cache()
+    return out
 
 
 def _pdomd_inputs(rows: int, seed: int, dev):
@@ -960,14 +1124,15 @@ def hybrid_phase(fused, card: str) -> int:
 
 
 def _same_run(dist, sim, what: str) -> None:
-    """Require a dist run's RunResult to equal a sim run's field by field,
-    exactly (wall-clock fields and the engine's name aside), and its final
-    engine state too."""
+    """Require a run's RunResult (a dist run, or one seed of a batch) to
+    equal another's (the sim run, or the seed's own run) field by field,
+    exactly (wall-clock fields, a batch's totals and the engine's name
+    aside), and its final engine state too."""
     import dataclasses
     import numpy as np
     import torch
     skip = {"engine", "wall_clock", "rounds_per_sec", "final_state"}
-    timing = {"engine", "wall_clock_s", "rounds_per_sec"}
+    timing = {"engine", "wall_clock_s", "rounds_per_sec", "batch"}
     for f in dataclasses.fields(dist):
         if f.name in skip:
             continue
@@ -979,7 +1144,9 @@ def _same_run(dist, sim, what: str) -> None:
                 else a == b)
         require(bool(same), f"{what}: {f.name} differs")
     st, sst = dist.final_state, sim.final_state
-    require(st.t == sst.t and torch.equal(st.theta["w"], sst.theta)
+    theta = lambda s: s.theta["w"] if isinstance(s.theta, dict) \
+        else s.theta  # noqa: E731
+    require(st.t == sst.t and torch.equal(theta(st), theta(sst))
             and torch.equal(st.generator.get_state(),
                             sst.generator.get_state()),
             f"{what}: final engine state differs")
@@ -1364,6 +1531,141 @@ def faults_phase(clean, card: str) -> dict:
     return out
 
 
+# -- 12-13. seed batches and the Fig. 2 sweep ------------------------------------
+
+BATCH_SEEDS = (0, 1, 2)
+TURN_ROUNDS = 512
+DCN_BATCH_ROUNDS = 256      # the dcn preset's first crash starts at 172
+FIG2_EPS = (0.1, 1.0, 10.0, math.inf)   # benchmarks/fig2_privacy.py's axis
+
+
+def batch_phase(main, card: str) -> dict:
+    """Phase 12: `run_batch` at the paper's scale, seeds 0-2, fused, with
+    regret — one launch of each round kernel a round for the three seeds
+    (1,562 each, all sparse), every seed equal to its own `run()` field by
+    field (seed 0's is phase 4's), the dist batch equal to the sim batch;
+    64 rounds of a hybrid batch (complete) and 256 of a dcn batch (the
+    fault schedule of the paper's horizon, so its crash windows), each
+    seed equal to its run();
+    then seed-rounds/s of the batch (S = 3, and S = 8) against three
+    sequential runs, in turns. Returns the batch's launches."""
+    import statistics as st
+    from repro_torch import ExecConfig, run, run_batch
+    from repro_torch.kernels import round_fused as rf
+    spec = paper_spec()
+    T, S = spec.horizon, len(BATCH_SEEDS)
+    cfg = ExecConfig(chunk_rounds=256, compute_regret=True, warmup=False)
+    rf.reset_launches()
+    t0 = time.perf_counter()
+    batch = run_batch(spec, BATCH_SEEDS, exec=cfg, device=DEVICE)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    info = batch[0].metrics["batch"]
+    log(f"batch: seeds {list(BATCH_SEEDS)}, {T} rounds, run_batch() "
+        f"{wall:.2f} s with regret; round loop {info['wall_clock_s']:.3f} s "
+        f"= {info['seed_rounds_per_sec']:.1f} seed-rounds/s; launches "
+        f"{launches} | {card}")
+    _require_path(launches, "sparse", T, "batch of seeds 0-2")
+    for seed, res in zip(BATCH_SEEDS, batch):
+        one = main if seed == 0 else run(paper_spec(seed=seed), exec=cfg,
+                                         device=DEVICE)
+        _same_run(res, one, f"batch seed {seed} vs its run()")
+        log(f"batch seed {seed}: every RunResult field and the final state "
+            f"equal to its run() ({one.rounds_per_sec:.1f} rounds/s), bit "
+            f"for bit; accuracy {res.accuracy:.4f}, regret[-1] "
+            f"{float(res.regret[-1]):.1f} | {card}")
+    rf.reset_launches()
+    dist = run_batch(spec, BATCH_SEEDS, "dist", exec=cfg, device=DEVICE)
+    _require_path(_launches(), "sparse", T, "dist batch")
+    for seed, d, sim in zip(BATCH_SEEDS, dist, batch):
+        _same_run(d, sim, f"dist batch seed {seed} vs sim batch")
+    log(f"dist batch: {dist[0].metrics['batch']['seed_rounds_per_sec']:.1f} "
+        f"seed-rounds/s; every seed equal to the sim batch's, bit for bit "
+        f"| {card}")
+    del batch, dist
+
+    short = cfg.replace(chunk_rounds=AGREE_ROUNDS, compute_regret=False)
+    for name, s, horizon, path in (
+            ("complete", paper_spec(mixer="complete"), AGREE_ROUNDS,
+             "hybrid"),
+            ("dcn", paper_spec(faults="dcn"),
+             min(DCN_BATCH_ROUNDS, PAPER_T), "hybrid")):
+        rf.reset_launches()
+        got = run_batch(s, BATCH_SEEDS, exec=short, horizon=horizon,
+                        device=DEVICE)
+        _require_path(_launches(), path, horizon, f"{name} batch")
+        for seed, res in zip(BATCH_SEEDS, got):
+            _same_run(res, run(s.replace(seed=seed), exec=short,
+                               horizon=horizon, device=DEVICE),
+                      f"{name} batch seed {seed} vs its run()")
+        part = got[0].privacy.get("participated_rounds")
+        log(f"{name} batch: {horizon} rounds on the {path} path, every seed "
+            f"equal to its run(), bit for bit; fewest rounds a node took "
+            f"part in: {min(part) if part else horizon} | {card}")
+
+    # seed-rounds/s of a batch against S sequential runs, in turns
+    turn = cfg.replace(compute_regret=False)
+    short_spec = paper_spec(horizon=TURN_ROUNDS)
+    rates = {"batch3": [], "sequential": [], "batch8": []}
+    order = ("batch3", "sequential", "batch8", "batch8", "sequential",
+             "batch3", "sequential", "batch3", "batch8")
+    for kind in order:
+        if kind == "sequential":
+            walls = [run(short_spec.replace(seed=s), exec=turn,
+                         device=DEVICE).wall_clock for s in BATCH_SEEDS]
+            rates[kind].append(S * TURN_ROUNDS / sum(walls))
+        else:
+            seeds = BATCH_SEEDS if kind == "batch3" else tuple(range(8))
+            rates[kind].append(run_batch(
+                short_spec, seeds, exec=turn, device=DEVICE)[0].metrics[
+                "batch"]["seed_rounds_per_sec"])
+    ratio = st.median(rates["batch3"]) / st.median(rates["sequential"])
+    log(f"seed-rounds/s over {TURN_ROUNDS} rounds in turns {order}: "
+        f"{json.dumps(rates)}; median batch of 3 / sequential {ratio:.2f} "
+        f"| {card}")
+    return {"launches": launches, "seed_rounds_per_sec": rates,
+            "batch3_over_sequential": ratio}
+
+
+def sweep_phase(card: str) -> dict:
+    """Phase 13: the paper's Fig. 2 axis (eps 0.1, 1, 10, inf x seeds 0-2,
+    the paper's scale, fused, regret on) through `repro_torch.sweep` into a
+    temporary store; a second sweep with reuse=True, require_store=True
+    must run nothing and give the same aggregates."""
+    import tempfile
+    from repro_torch.sweep import SweepSpec, sweep
+    sw = SweepSpec(base=paper_spec(), axes={"eps": FIG2_EPS},
+                   seeds=BATCH_SEEDS, name="fig2_eps", chunk_rounds=256,
+                   compute_regret=True)
+    with tempfile.TemporaryDirectory() as store:
+        t0 = time.perf_counter()
+        out = sweep(sw, store=store, warmup=False, device=DEVICE)
+        ran_s = time.perf_counter() - t0
+        require(out.ran_points == len(FIG2_EPS), "fig2 sweep: ran "
+                f"{out.ran_points} points")
+        t0 = time.perf_counter()
+        again = sweep(sw, store=store, reuse=True, require_store=True,
+                      warmup=False, device=DEVICE)
+        load_s = time.perf_counter() - t0
+    require(again.ran_points == 0 and again.loaded_points == len(FIG2_EPS),
+            f"fig2 sweep from the store: ran {again.ran_points}")
+    rows = {}
+    for metric in ("accuracy", "regret_final"):
+        rows[metric] = out.aggregate(metric)
+        require(again.aggregate(metric) == rows[metric],
+                f"fig2 sweep: the store's {metric} aggregates differ")
+    for acc, reg in zip(rows["accuracy"], rows["regret_final"]):
+        require(all(math.isfinite(v) for v in acc["values"] + reg["values"]),
+                f"fig2 sweep eps={acc['eps']}: non-finite values")
+        log(f"fig2 eps={acc['eps']}: accuracy {acc['mean']:.4f} +- "
+            f"{acc['std']:.4f}, regret_final {reg['mean']:.1f} +- "
+            f"{reg['std']:.1f} over seeds {list(BATCH_SEEDS)} | {card}")
+    log(f"fig2 sweep: {len(FIG2_EPS)} points x {len(BATCH_SEEDS)} seeds ran "
+        f"in {ran_s:.1f} s (runs and store); reloaded from the store in "
+        f"{load_s:.1f} s, nothing re-run, the same aggregates | {card}")
+    return {"ran_s": ran_s, "load_s": load_s}
+
+
 PATHS = {"round_stats": "main", "round_update": "main",
          "dual_step": "hybrid (phase 6, complete, time_varying, faults)",
          "pdomd_update": "ops", "hinge_grad": "ops"}
@@ -1374,6 +1676,7 @@ def main() -> int:
     import torch
     build_phase()
     kernels = kernel_phase(card)
+    batched = batch_kernel_phase(card)
     kernels.update(seed_kernel_phase(card))
     main_res, launches = main_path(card)
     idle_share(card)
@@ -1385,6 +1688,8 @@ def main() -> int:
     topologies = topology_phase(card)
     stages = stages_phase(card)
     faults = faults_phase(main_res, card)
+    batch = batch_phase(main_res, card)
+    sweep_phase(card)
     hybrid = {"hybrid": launches["dual_step"],
               **{name: run["launches"]["dual_step"]
                  for name, run in topologies.items()
@@ -1404,6 +1709,11 @@ def main() -> int:
                "sparse_launches": run["launches"]["round_update_sparse"]}
         for name, run in topologies.items() if run["path"] != "hybrid"}
     kernels["dual_step"]["launches_by_run"] = hybrid
+    for name in ("round_stats", "round_update"):
+        kernels[name]["batched"] = batched[name]
+        kernels[name]["batch_launches"] = batch["launches"][name]
+    kernels["round_update"]["batch_sparse_launches"] = batch["launches"][
+        "round_update_sparse"]
     kernels["hinge_grad"]["slab_launches"] = launches["hinge_grad_slab"]
     log("topologies (rounds/s, accuracy, regret[-1]): " + json.dumps(
         {name: [run["rounds_per_sec"], run["accuracy"], run["regret_last"]]

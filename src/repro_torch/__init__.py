@@ -23,13 +23,21 @@ stragglers) ride on the spec and run hybrid on the cuda backend:
 
     res = run(spec.replace(faults="dcn"))
     res.connectivity, res.metrics["faults"], res.privacy
+
+Several seeds of one configuration run in step — one launch of each round
+kernel a round for all of them, each seed's result equal to its own run —
+and `repro_torch.sweep` runs grids of them into a results store:
+
+    batch = run_batch(spec, seeds=(0, 1, 2))    # [RunResult] * 3
 """
 from repro_torch.api import (FAULTS, ExecConfig, FaultSpec, GossipDP,
                              GossipState, RunResult, RunSpec, degradation,
                              gossip_mix_tree, ops, per_node_clip,
-                             rounds_to_recover, run, wrap_mixer)
+                             rounds_to_recover, run, run_batch,
+                             seed_vectorizable, wrap_mixer)
 
-__all__ = ["ExecConfig", "RunResult", "RunSpec", "run", "GossipDP",
+__all__ = ["ExecConfig", "RunResult", "RunSpec", "run", "run_batch",
+           "seed_vectorizable", "GossipDP",
            "GossipState", "gossip_mix_tree", "per_node_clip", "ops",
            "FAULTS", "FaultSpec", "wrap_mixer", "degradation",
            "rounds_to_recover"]

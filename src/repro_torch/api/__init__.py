@@ -6,7 +6,9 @@ stages — Mixer, Mechanism, LocalRule, Clipper, Stream — shared by both
 engines (the dense simulator and the distributed `GossipDP`), and a
 BACKENDS registry that says how the round body executes ("reference" torch
 ops or the fused "cuda" kernels), and the FAULTS registry of fault
-scenarios (`repro_torch.faults`).
+scenarios (`repro_torch.faults`). `run` drives one seed, `run_batch` S
+seeds of one configuration in step (`seed_vectorizable` says when they can
+share one chunk program).
 
 >>> from repro_torch.api import MIXERS, MECHANISMS, LOCAL_RULES, CLIPPERS
 >>> MIXERS.names()    # doctest: +NORMALIZE_WHITESPACE
@@ -41,7 +43,8 @@ from repro_torch.api.streams import (BurstyStream, DriftStream,
                                      Stream)
 from repro_torch.api.spec import RunSpec
 from repro_torch.api.exec_config import ExecConfig
-from repro_torch.api.runner import RunResult, make_chunk_program, run
+from repro_torch.api.runner import (RunResult, make_chunk_program, run,
+                                   run_batch, seed_vectorizable)
 # importing repro_torch.api.backends registers the BACKENDS entries
 from repro_torch.api.backends import CudaBackend, ReferenceBackend
 from repro_torch.core.gossip import (GossipDP, GossipState, gossip_mix_tree,
@@ -64,7 +67,8 @@ __all__ = [
     "per_node_norms",
     "Stream", "SocialStream", "DriftStream", "HeterogeneousStream",
     "BurstyStream",
-    "RunSpec", "ExecConfig", "RunResult", "run", "make_chunk_program",
+    "RunSpec", "ExecConfig", "RunResult", "run", "run_batch",
+    "seed_vectorizable", "make_chunk_program",
     "ReferenceBackend", "CudaBackend",
     "GossipDP", "GossipState", "gossip_mix_tree", "per_node_clip", "ops",
     "FAULTS", "FaultSpec", "wrap_mixer", "degradation", "rounds_to_recover",

@@ -48,6 +48,16 @@ kernel (``dual_step``; ``round_update`` has the same epilogue) with the
 round's liveness row from the schedule's device table — no host copy per
 round.
 
+Seed batches (`runner.run_batch`): each backend also builds a batch chunk
+program over a `runner.BatchState`. The reference backend steps every
+seed's round in seed order (the oracle). The cuda backend's round is
+written for S seeds — one batched ``round_stats``, the per-node algebra
+on (S, m) tensors (reductions seed by seed, in a one-seed run's order),
+each seed's noise from its own generator, then one batched
+``round_update`` (fused) or the torch-op mix seed by seed and one
+``dual_step`` over the S*m rows (hybrid) — and a one-seed `run` takes it
+as a batch of one, so a batch's seeds equal their runs bit for bit.
+
 >>> from repro_torch.api import BACKENDS
 >>> BACKENDS.names()
 ('cuda', 'reference')
@@ -61,7 +71,11 @@ import torch
 
 from repro_torch.api.mixers import ring_read, ring_write
 from repro_torch.api.registry import BACKENDS
-from repro_torch.api.runner import chunk_loop, reference_chunk_program
+from repro_torch.api.runner import (BatchState, batch_init, chunk_loop,
+                                    reference_batch_chunk_program,
+                                    reference_chunk_program,
+                                    reference_round_program, seed_state,
+                                    stack_states)
 
 __all__ = ["BACKENDS", "ReferenceBackend", "CudaBackend"]
 
@@ -74,6 +88,10 @@ class ReferenceBackend:
 
     def make_chunk_program(self, spec, engine: str, device: torch.device):
         return reference_chunk_program(spec, engine, device)
+
+    def make_batch_chunk_program(self, spec, engine: str,
+                                 device: torch.device):
+        return reference_batch_chunk_program(spec, engine, device)
 
 
 def _check_supported(spec) -> None:
@@ -126,6 +144,24 @@ def _dense_mix_form(mixer, device: torch.device):
     return A, diag, delay, csr
 
 
+def _stack_seeds(outs: list) -> torch.Tensor:
+    """Per-seed tensors on a leading seed axis (one seed: a view)."""
+    return outs[0][None] if len(outs) == 1 else torch.stack(outs)
+
+
+def _per_seed(fn: Callable, t) -> torch.Tensor:
+    """``fn`` on each seed's slice of ``t``, stacked on a leading seed axis.
+    A reduction on an (S, ...) tensor may take another order than on one
+    seed's slice (torch picks its split from the output count), so the
+    batch reduces seed by seed, exactly as a one-seed run does."""
+    return _stack_seeds([fn(row) for row in t])
+
+
+def _seed_rows(t: torch.Tensor) -> torch.Tensor:
+    """An (S, m, ...) tensor as (S*m, ...) rows (no copy)."""
+    return t.reshape((-1,) + tuple(t.shape[2:]))
+
+
 @dataclasses.dataclass(frozen=True)
 class CudaBackend:
     """Fused-kernel execution of the round body (see module docstring).
@@ -145,15 +181,34 @@ class CudaBackend:
                              "'auto', 'fused' or 'hybrid'")
 
     def make_chunk_program(self, spec, engine: str, device: torch.device):
-        init_fn = reference_chunk_program(spec, engine, device)[1]
-        return chunk_loop(self._make_round_fn(spec, engine, device)), init_fn
+        """One run: the batched round on a batch of that one seed (views
+        of its state: nothing is copied)."""
+        round_fn = self._make_round_fn(spec, engine, device)
+        init_fn = reference_round_program(spec, engine, device)[1]
+
+        def one_seed(state, batch):
+            x, y = batch
+            bstate, out = round_fn(stack_states([state]), (x[None], y[None]))
+            return seed_state(engine, bstate, 0), type(out)(
+                *(f[0] for f in out))
+
+        return chunk_loop(one_seed), init_fn
+
+    def make_batch_chunk_program(self, spec, engine: str,
+                                 device: torch.device):
+        init_fn = reference_round_program(spec, engine, device)[1]
+        return (chunk_loop(self._make_round_fn(spec, engine, device)),
+                batch_init(init_fn))
 
     def _make_round_fn(self, spec, engine: str,
                        device: torch.device) -> Callable:
+        """The round of S seeds in step (`BatchState`; S = 1 for `run`):
+        one ``round_stats`` and one ``round_update`` (or ``dual_step``)
+        launch for all seeds, the per-node algebra on (S, m) tensors, and
+        each seed's noise from its own generator, in seed order."""
         from repro_torch.api.clippers import (PerNodeL2Clipper, clip_factor,
                                               per_node_norms)
-        from repro_torch.core.algorithm1 import RoundOutput, SimState
-        from repro_torch.core.gossip import GossipState
+        from repro_torch.core.algorithm1 import RoundOutput
         from repro_torch.core.prox import zero_fraction
         from repro_torch.kernels import round_fused as rf
 
@@ -188,7 +243,7 @@ class CudaBackend:
         schedule = getattr(mixer, "schedule", None)
         if schedule is None or not schedule.has_crashes:
             schedule = None
-            alive = torch.ones(m, dtype=torch.float32, device=device)
+        alive = torch.ones(m, dtype=torch.float32, device=device)
 
         def stats_and_coeff(theta, x, y, ctx):
             dot, _, nnz, wbdot, _ = rf.round_stats(
@@ -204,63 +259,77 @@ class CudaBackend:
                 # ||x|| is summed as the reference backend's clipper sums
                 # ||grad|| (the kernel's xsq adds in another order, and an
                 # ulp in the factor moves theta)
-                coeff = coeff * clip_factor(active * per_node_norms(x),
-                                            clip_norm)
-            wb_loss = torch.mean(torch.clamp_min(1.0 - y * wbdot, 0.0))
+                coeff = coeff * clip_factor(
+                    active * _per_seed(per_node_norms, x), clip_norm)
+            wb_loss = _per_seed(torch.mean,
+                                torch.clamp_min(1.0 - y * wbdot, 0.0))
             # zero COUNT first (exact), then one f32 division — bit-equal
             # to the reference's mean of indicators
-            sparsity = zero_fraction(m * n - nnz.sum(), m * n)
+            sparsity = zero_fraction(m * n - nnz.sum(dim=1), m * n)
             return coeff, loss, correct, wb_loss, sparsity
 
         sim = engine == "sim"
+        write_ring = lambda hist, t, v: ring_write(  # noqa: E731
+            hist.transpose(0, 1), t, v)    # slot t % depth of every seed
 
         def round_fn(state, batch):
-            x, y = batch
+            x, y = batch                   # (S, m, n), (S, m)
             theta, hist = state.theta, state.history
             if not sim:
                 theta = theta["w"]
                 hist = None if hist is None else hist["w"]
+            S = theta.shape[0]
             ctx = omd.step_context(state.t + 1)
             coeff, loss, correct, wb_loss, sparsity = stats_and_coeff(
                 theta, x, y, ctx)
             live = (alive if schedule is None
-                    else schedule.alive_f32(state.t, device))
+                    else schedule.alive_f32(state.t, device)).expand(S, m)
 
-            # the engine's noise draw, outside the kernels
+            # each seed's noise draw from its own generator, outside the
+            # kernels, in seed order
             scale = mech.scale(ctx.alpha_t, n)
-            delta = mech.sample(state.generator, (m, n), scale)
+            delta = _per_seed(lambda g: mech.sample(g, (m, n), scale),
+                              state.generators)
 
             if dense is not None:
                 if delay:
                     tilde = theta + delta
-                    hist = ring_write(hist, state.t, tilde)
-                    recv, use_recv = ring_read(hist, state.t, delay,
-                                               tilde), 1
+                    write_ring(hist, state.t, tilde)
+                    recv, use_recv = ring_read(hist.transpose(0, 1), state.t,
+                                               delay, tilde), 1
                 else:
                     recv, use_recv = theta, 0
                 theta_next, _ = rf.round_update(
                     A, theta, delta, x, recv.contiguous(), coeff, diag_v,
-                    live, ctx.alpha_t, use_recv, mech.noise_self, csr=csr)
+                    live.contiguous(), ctx.alpha_t, use_recv,
+                    mech.noise_self, csr=csr)
             else:
                 tilde = theta + delta
+                # the torch-op mix seed by seed
                 if delay:
-                    hist = ring_write(hist, state.t, tilde)
-                    mixed = mixer.mix_history(theta, tilde, hist,
-                                              mech.noise_self, state.t)
+                    write_ring(hist, state.t, tilde)
+                    mixed = _stack_seeds([
+                        mixer.mix_history(theta[i], tilde[i], hist[i],
+                                          mech.noise_self, state.t)
+                        for i in range(S)])
                 else:
-                    mixed = mixer.mix(theta, tilde, mech.noise_self, state.t)
-                theta_next = rf.dual_step(mixed.contiguous(), x, theta,
-                                          coeff, live, ctx.alpha_t)
+                    mixed = _stack_seeds([
+                        mixer.mix(theta[i], tilde[i], mech.noise_self,
+                                  state.t) for i in range(S)])
+                # the dual step is row-wise: one launch over the S*m rows
+                theta_next = rf.dual_step(
+                    _seed_rows(mixed.contiguous()), _seed_rows(x),
+                    _seed_rows(theta), coeff.reshape(-1),
+                    live.reshape(-1), ctx.alpha_t).view(S, m, n)
 
             out = RoundOutput(loss=loss, w_bar_loss=wb_loss,
                               sparsity=sparsity, correct=correct)
-            if sim:
-                return SimState(theta=theta_next, t=state.t + 1,
-                                generator=state.generator, history=hist), out
-            return GossipState(
-                theta={"w": theta_next}, t=state.t + 1,
-                generator=state.generator,
-                history=None if hist is None else {"w": hist}), out
+            if not sim:
+                theta_next = {"w": theta_next}
+                hist = None if hist is None else {"w": hist}
+            return BatchState(theta=theta_next, t=state.t + 1,
+                              generators=state.generators,
+                              history=hist), out
 
         return round_fn
 

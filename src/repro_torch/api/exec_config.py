@@ -1,7 +1,8 @@
 """ExecConfig — the execution knobs of `run`, as one object.
 
-Counterpart of `repro.api.exec_config` for the fields this slice carries.
-WHAT to run stays on `RunSpec`; HOW to execute it lives here.
+Counterpart of `repro.api.exec_config` for the fields the port carries
+(`run` and `run_batch`). WHAT to run stays on `RunSpec`; HOW to execute it
+lives here.
 
 >>> from repro_torch.api import ExecConfig
 >>> cfg = ExecConfig(chunk_rounds=64, warmup=False)
@@ -14,6 +15,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Any
+
+from repro_torch.api.spec import not_ported
 
 __all__ = ["ExecConfig"]
 
@@ -31,6 +34,13 @@ class ExecConfig:
     checkpoint_every / checkpoint_dir / resume:
                         periodic engine-state checkpoints and bit-identical
                         resume (`repro_torch.checkpoint`).
+    check_vectorizable: `run_batch` refuses a spec whose resolved mixer
+                        depends on the seed (`seed_vectorizable`); False
+                        skips the check for a caller that already made it
+                        (`repro_torch.sweep`).
+    devices / mesh:     the reference's seed-axis sharding of a batch over
+                        several devices; not ported (one card here) — any
+                        value but None raises.
     """
 
     chunk_rounds: int = 512
@@ -39,10 +49,18 @@ class ExecConfig:
     checkpoint_every: int | None = None
     checkpoint_dir: str | None = None
     resume: bool = False
+    devices: Any = None
+    mesh: Any = None
+    check_vectorizable: bool = True
 
     def __post_init__(self):
         if self.chunk_rounds < 1:
             raise ValueError("chunk_rounds must be >= 1")
+        for name in ("devices", "mesh"):
+            if getattr(self, name) is not None:
+                raise not_ported(
+                    f"ExecConfig.{name} (sharding a seed batch over several "
+                    f"devices, ROADMAP queue 1 item 4: multi-device)")
 
     def replace(self, **kw: Any) -> "ExecConfig":
         return dataclasses.replace(self, **kw)

@@ -30,13 +30,25 @@ True
 Both engines draw the same stream chunks and the same noise from a
 generator seeded alike, in the same order, so their iterates are
 bit-identical (see `core.gossip`).
+
+`run_batch` drives S seeds of one configuration in step (`BatchState`):
+each seed's RunResult equals its own `run` bit for bit, and on the cuda
+backend one launch of each round kernel a round serves all S seeds.
+
+>>> from repro_torch import run_batch
+>>> batch = run_batch(spec, (0, 1), exec=cfg, device="cpu")
+>>> bool((batch[1].final_w == run(spec.replace(seed=1), exec=cfg,
+...                                  device="cpu").final_w).all())
+True
+>>> batch[0].metrics["batch"]["seeds"]
+[0, 1]
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import time
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -48,8 +60,11 @@ from repro_torch.core import tree
 from repro_torch.core.privacy import PrivacyAccountant
 from repro_torch.device import resolve_device, synchronize
 
-__all__ = ["run", "RunResult", "make_chunk_program",
-           "reference_chunk_program", "chunk_loop"]
+__all__ = ["run", "run_batch", "seed_vectorizable", "RunResult",
+           "BatchState", "make_chunk_program", "make_batch_chunk_program",
+           "reference_round_program", "reference_chunk_program",
+           "reference_batch_chunk_program", "chunk_loop", "per_seed_round",
+           "batch_init", "stack_states", "seed_state"]
 
 
 # -- JSON round-trip ---------------------------------------------------------
@@ -228,6 +243,18 @@ def make_chunk_program(spec: RunSpec, engine: str = "sim",
         spec, engine, resolve_device(device))
 
 
+def make_batch_chunk_program(spec: RunSpec, engine: str = "sim",
+                             device: str | torch.device = "cuda"):
+    """(chunk_fn, init_fn) of a seed batch, through the spec's backend.
+
+    chunk_fn(state, xs, ys) runs a chunk of rounds of every seed: xs is
+    (C, S, m, n), ys (C, S, m), and the RoundOutput fields are stacked
+    (C, S, ...). init_fn(seeds) builds the `BatchState` on ``device``.
+    """
+    return spec.resolve_backend().make_batch_chunk_program(
+        spec, engine, resolve_device(device))
+
+
 def chunk_loop(round_fn: Callable) -> Callable:
     """chunk_fn(state, xs, ys) -> (state, stacked RoundOutput): the Python
     loop over rounds that takes the place of the reference's lax.scan."""
@@ -243,9 +270,9 @@ def chunk_loop(round_fn: Callable) -> Callable:
     return chunk_fn
 
 
-def reference_chunk_program(spec: RunSpec, engine: str,
+def reference_round_program(spec: RunSpec, engine: str,
                             device: torch.device):
-    """(chunk_fn, init_fn) of the torch-op engines — the reference backend
+    """(round_fn, init_fn) of the torch-op engines — the reference backend
     (and the init_fn every backend shares)."""
     from repro_torch.core import prox
     from repro_torch.core.algorithm1 import RoundOutput, hinge_loss_and_grad
@@ -256,7 +283,7 @@ def reference_chunk_program(spec: RunSpec, engine: str,
 
     if engine == "sim":
         alg = spec.build_simulator()
-        return chunk_loop(alg.round), lambda seed: alg.init(seed, device)
+        return alg.round, lambda seed: alg.init(seed, device)
 
     if engine == "dist":
         gdp = spec.build_distributed()
@@ -282,10 +309,134 @@ def reference_chunk_program(spec: RunSpec, engine: str,
             return gdp.init({"w": torch.zeros((m, n), dtype=torch.float32)},
                             seed, device)
 
-        return chunk_loop(round_fn), init_fn
+        return round_fn, init_fn
 
     raise ValueError(f"unknown engine {engine!r}; expected 'sim' or 'dist'")
 
+
+def reference_chunk_program(spec: RunSpec, engine: str,
+                            device: torch.device):
+    """(chunk_fn, init_fn) of the reference backend."""
+    round_fn, init_fn = reference_round_program(spec, engine, device)
+    return chunk_loop(round_fn), init_fn
+
+
+# -- seed batches ------------------------------------------------------------
+
+class BatchState(NamedTuple):
+    """S runs of one configuration in step (`run_batch`): the engine's
+    theta and delay ring — a tensor (sim) or ``{"w": tensor}`` (dist) —
+    with a leading seed axis, the round counter they share, and each seed's
+    own noise generator."""
+
+    theta: Any                    # (S, m, n) or {"w": (S, m, n)}
+    t: int                        # rounds done
+    generators: tuple             # one torch.Generator per seed
+    history: Any = None           # (S, delay+1, m, n) ring, or None
+
+
+def stack_states(states) -> BatchState:
+    """The `BatchState` of per-seed engine states (all at one round); one
+    state becomes a batch of one as views of its tensors (its delay ring
+    is then written in place, as the one-seed round writes it)."""
+    stack = ((lambda t: t[None]) if len(states) == 1  # noqa: E731
+             else lambda *ts: torch.stack(ts))
+    first = states[0]
+    return BatchState(
+        theta=tree.tree_map(stack, *(s.theta for s in states)), t=first.t,
+        generators=tuple(s.generator for s in states),
+        history=(None if first.history is None else
+                 tree.tree_map(stack, *(s.history for s in states))))
+
+
+def seed_state(engine: str, state: BatchState, i: int):
+    """Seed ``i``'s engine state (`SimState` or `GossipState`) in a batch:
+    views of its slices, and its own generator."""
+    cls = _state_types()["SimState" if engine == "sim" else "GossipState"]
+    pick = lambda a: a[i]  # noqa: E731
+    return cls(theta=tree.tree_map(pick, state.theta), t=state.t,
+               generator=state.generators[i],
+               history=(None if state.history is None
+                        else tree.tree_map(pick, state.history)))
+
+
+def per_seed_round(round_fn: Callable, engine: str) -> Callable:
+    """A batch round that steps ``round_fn`` once per seed, in seed order,
+    on that seed's slices (the reference backend's batch: the plain
+    per-seed algebra, the oracle of the fused batch)."""
+    from repro_torch.core.algorithm1 import RoundOutput
+
+    def batch_round(state: BatchState, batch):
+        xs, ys = batch
+        steps = [round_fn(seed_state(engine, state, i), (xs[i], ys[i]))
+                 for i in range(len(state.generators))]
+        return (stack_states([st for st, _ in steps]),
+                RoundOutput(*(torch.stack(f)
+                              for f in zip(*(out for _, out in steps)))))
+
+    return batch_round
+
+
+def batch_init(init_fn: Callable) -> Callable:
+    """init_fn(seeds) -> the `BatchState` of the seeds' initial states."""
+    return lambda seeds: stack_states([init_fn(s) for s in seeds])
+
+
+def reference_batch_chunk_program(spec: RunSpec, engine: str,
+                                  device: torch.device):
+    """(chunk_fn, init_fn) of a seed batch on the reference backend."""
+    round_fn, init_fn = reference_round_program(spec, engine, device)
+    return chunk_loop(per_seed_round(round_fn, engine)), batch_init(init_fn)
+
+
+def _config_eq(a: Any, b: Any) -> bool:
+    """Structural equality for resolved protocol stages (mixers etc.)."""
+    if a is b:
+        return True
+    if type(a) is not type(b):
+        return False
+    if isinstance(a, torch.Tensor):
+        return (a.shape == b.shape and a.dtype == b.dtype
+                and a.device == b.device and torch.equal(a, b))
+    if isinstance(a, (np.ndarray, np.generic)):
+        return (np.shape(a) == np.shape(b)
+                and bool(np.array_equal(np.asarray(a), np.asarray(b))))
+    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+        return all(_config_eq(getattr(a, f.name), getattr(b, f.name))
+                   for f in dataclasses.fields(a))
+    if isinstance(a, dict):
+        return (a.keys() == b.keys()
+                and all(_config_eq(v, b[k]) for k, v in a.items()))
+    if isinstance(a, (list, tuple)):
+        return (len(a) == len(b)
+                and all(_config_eq(x, y) for x, y in zip(a, b)))
+    if hasattr(a, "__dict__") and not callable(a):
+        return _config_eq(vars(a), vars(b))
+    try:
+        return bool(a == b)
+    except Exception:
+        return False
+
+
+def seed_vectorizable(spec: RunSpec, seeds) -> bool:
+    """True when a seed batch can share ONE chunk program.
+
+    The batched round builds the resolved mixer (and the rest of the stage
+    pipeline) once, from the first seed; only the noise generator and the
+    stream data vary per seed. Seeded topologies ('random',
+    'time_varying', per-edge `delay_dist` draws) resolve to DIFFERENT mixing
+    matrices per seed, so they must fall back to sequential `run()` calls —
+    `repro_torch.sweep` consults this predicate to pick the path.
+    """
+    seeds = list(seeds)
+    if len(seeds) <= 1:
+        return True
+    base = spec.replace(seed=seeds[0]).resolve_mixer()
+    return all(_config_eq(spec.replace(seed=s).resolve_mixer(), base)
+               for s in seeds[1:])
+
+
+# -- the drive loop shared by run and run_batch --------------------------------
 
 def _boundaries(start: int, T: int, chunk_rounds: int,
                 checkpoint_every: int | None) -> list[int]:
@@ -302,15 +453,22 @@ def _boundaries(start: int, T: int, chunk_rounds: int,
     return ts
 
 
+def _copy_gen(gen: torch.Generator) -> torch.Generator:
+    out = torch.Generator(device=gen.device)
+    out.set_state(gen.get_state())
+    return out
+
+
 def _copy_state(state):
-    """An independent copy of either engine's state (the round writes the
-    delay ring in place and advances the generator)."""
-    gen = torch.Generator(device=state.generator.device)
-    gen.set_state(state.generator.get_state())
+    """An independent copy of an engine state or a `BatchState` (the round
+    writes the delay ring in place and advances the generators)."""
     clone = lambda t: t.clone()  # noqa: E731
+    gens = ({"generators": tuple(map(_copy_gen, state.generators))}
+            if isinstance(state, BatchState)
+            else {"generator": _copy_gen(state.generator)})
     return state._replace(theta=tree.tree_map(clone, state.theta),
-                          generator=gen,
-                          history=tree.tree_map(clone, state.history))
+                          history=tree.tree_map(clone, state.history),
+                          **gens)
 
 
 def _final_primal(spec: RunSpec, engine: str, state) -> np.ndarray:
@@ -323,58 +481,40 @@ def _final_primal(spec: RunSpec, engine: str, state) -> np.ndarray:
     return rule.primal(theta, ctx).cpu().numpy()
 
 
-def run(spec: RunSpec, engine: str = "sim", *,
-        exec: ExecConfig | None = None, horizon: int | None = None,
-        device: str | torch.device = "cuda") -> RunResult:
-    """Drive one run end to end on ``engine`` ("sim" or "dist") and return
-    a RunResult.
+def _stream_chunk(stream, a: int, b: int, dev: torch.device):
+    """Rounds [a, b) of a stream as float32 tensors on ``dev``."""
+    xs, ys = stream.chunk(a, b)
+    return (torch.as_tensor(xs, dtype=torch.float32).to(dev),
+            torch.as_tensor(ys, dtype=torch.float32).to(dev))
 
-    ``exec=ExecConfig(...)`` carries the execution knobs. ``horizon`` cuts
-    the run short of ``spec.horizon``. ``device`` defaults to CUDA and
-    raises without it; pass ``device="cpu"`` for the plain PyTorch path.
-    ``checkpoint_every`` saves the engine state every N rounds into
-    ``checkpoint_dir``; ``resume=True`` restores the latest checkpoint and
-    continues bit-identically.
-    """
-    cfg = exec if exec is not None else ExecConfig()
-    if not isinstance(cfg, ExecConfig):
-        raise TypeError(f"run() exec= expects an ExecConfig, got "
-                        f"{type(cfg).__name__}")
-    dev = resolve_device(device)
-    stream = spec.resolve_stream(device=dev)
-    T = horizon or spec.horizon or stream.rounds
-    m = spec.nodes
 
-    mech = spec.resolve_mechanism()
+def _accountant(spec: RunSpec, stream) -> PrivacyAccountant:
     # a custom stream that does not DECLARE disjoint rounds gets the
     # pessimistic sequential composition — never overstate a DP guarantee
-    accountant = PrivacyAccountant(
+    mech = spec.resolve_mechanism()
+    return PrivacyAccountant(
         eps_per_round=spec.eps if mech.is_private else math.inf,
         disjoint_streams=getattr(stream, "disjoint", False))
 
-    # repro_torch.faults: one resolved faulty mixer for accounting and
-    # metrics — its pattern is a function of FaultSpec.seed and the round,
-    # so it agrees with the one the chunk program mixes with
-    fault_mixer = spec.resolve_mixer() if spec.faults is not None else None
-    fault_sched = getattr(fault_mixer, "schedule", None)
 
-    chunk_fn, init_fn = make_chunk_program(spec, engine, dev)
-    state = init_fn(spec.seed)
-    start = 0
-    if cfg.resume:
-        if not cfg.checkpoint_dir:
-            raise ValueError("resume=True needs checkpoint_dir=")
-        found = latest_step(cfg.checkpoint_dir)
-        if found is not None:
-            state = restore_checkpoint(cfg.checkpoint_dir, state, step=found)
-            start = found
-    accountant.rounds = start
+def _restore(cfg: ExecConfig, state):
+    """(state, start): the latest checkpoint when resuming, else as given."""
+    if not cfg.resume:
+        return state, 0
+    if not cfg.checkpoint_dir:
+        raise ValueError("resume=True needs checkpoint_dir=")
+    found = latest_step(cfg.checkpoint_dir)
+    if found is None:
+        return state, 0
+    return restore_checkpoint(cfg.checkpoint_dir, state, step=found), found
 
-    def chunk(a: int, b: int):
-        xs, ys = stream.chunk(a, b)
-        return (torch.as_tensor(xs, dtype=torch.float32).to(dev),
-                torch.as_tensor(ys, dtype=torch.float32).to(dev))
 
+def _drive(cfg: ExecConfig, chunk_fn: Callable, chunk: Callable, state,
+           start: int, T: int, accountant: PrivacyAccountant, fault_sched,
+           dev: torch.device):
+    """The timed chunk loop of rounds [start, T): (state, per-chunk
+    outputs, per-chunk xs and ys kept for the regret, loop wall seconds).
+    ``chunk(a, b)`` makes the stream's rounds [a, b) on ``dev``."""
     bounds = _boundaries(start, T, cfg.chunk_rounds, cfg.checkpoint_every)
     first_chunk = None
     if cfg.warmup and len(bounds) > 1:
@@ -404,51 +544,201 @@ def run(spec: RunSpec, engine: str = "sim", *,
                 and b % cfg.checkpoint_every == 0):
             save_checkpoint(cfg.checkpoint_dir, b, state)
     synchronize(dev)
-    wall = time.perf_counter() - t0
+    return state, outs, xs_all, ys_all, time.perf_counter() - t0
 
-    def gather(field: str):
-        if not outs:
-            return None
-        return torch.cat([getattr(o, field) for o in outs]).cpu().numpy()
 
-    correct = gather("correct")
-    w_bar_loss = gather("w_bar_loss")
-    regret = None
-    if cfg.compute_regret and start == 0 and xs_all:
-        from repro_torch.core.regret import cumulative_regret
-        xs_cat, ys_cat = torch.cat(xs_all), torch.cat(ys_all)
-        del xs_all, ys_all
-        regret = cumulative_regret(w_bar_loss, xs_cat, ys_cat, m)
+def _gather(outs: list, field: str) -> np.ndarray | None:
+    """One RoundOutput field over every chunk, on the host (None when no
+    round ran)."""
+    if not outs:
+        return None
+    return torch.cat([getattr(o, field) for o in outs]).cpu().numpy()
 
-    done = T - start
+
+_TRAJECTORIES = ("loss", "w_bar_loss", "correct", "sparsity")
+
+
+def _result(spec: RunSpec, engine: str, stream, state, traj: dict, regret,
+            *, T: int, start: int, wall: float, rate: float,
+            dev: torch.device, accountant: PrivacyAccountant, fault_sched,
+            conn) -> RunResult:
+    """One run's RunResult from its trajectories and final state."""
+    correct = traj["correct"]
     tail = max(1, int(correct.shape[0] * 0.2)) if correct is not None else 1
     result = RunResult(
         engine=engine,
         rounds=T,
         start_round=start,
         wall_clock=wall,
-        rounds_per_sec=(done / wall) if wall > 0 else float("inf"),
+        rounds_per_sec=rate,
         device=str(dev),
         stream=(spec.stream if isinstance(spec.stream, str)
                 else type(stream).__name__),
         eps_ledger=np.asarray(accountant.ledger(T)[start:]),
         privacy=accountant.summary(),
-        loss=gather("loss"),
-        w_bar_loss=w_bar_loss,
-        correct=correct,
-        sparsity=gather("sparsity"),
         regret=regret,
         accuracy=(float(correct[-tail:].mean()) if correct is not None
                   else None),
         final_w=_final_primal(spec, engine, state),
         final_state=state,
+        **traj,
     )
     result.metrics = result.summary()
-    if fault_mixer is not None and done > 0:
-        conn = fault_mixer.connectivity(T, dev)[start:]
-        result.connectivity = conn
+    if conn is not None:
+        result.connectivity = conn.copy()
         result.metrics["faults"] = _fault_metrics(spec, fault_sched, conn)
     return result
+
+
+def _connectivity(fault_mixer, T: int, start: int, dev: torch.device):
+    """A faulty run's per-round connectivity over [start, T), else None."""
+    if fault_mixer is None or T - start <= 0:
+        return None
+    return fault_mixer.connectivity(T, dev)[start:]
+
+
+def _exec_config(exec: ExecConfig | None, caller: str) -> ExecConfig:
+    cfg = exec if exec is not None else ExecConfig()
+    if not isinstance(cfg, ExecConfig):
+        raise TypeError(f"{caller}() exec= expects an ExecConfig, got "
+                        f"{type(cfg).__name__}")
+    return cfg
+
+
+def run(spec: RunSpec, engine: str = "sim", *,
+        exec: ExecConfig | None = None, horizon: int | None = None,
+        device: str | torch.device = "cuda") -> RunResult:
+    """Drive one run end to end on ``engine`` ("sim" or "dist") and return
+    a RunResult.
+
+    ``exec=ExecConfig(...)`` carries the execution knobs. ``horizon`` cuts
+    the run short of ``spec.horizon``. ``device`` defaults to CUDA and
+    raises without it; pass ``device="cpu"`` for the plain PyTorch path.
+    ``checkpoint_every`` saves the engine state every N rounds into
+    ``checkpoint_dir``; ``resume=True`` restores the latest checkpoint and
+    continues bit-identically.
+    """
+    cfg = _exec_config(exec, "run")
+    dev = resolve_device(device)
+    stream = spec.resolve_stream(device=dev)
+    T = horizon or spec.horizon or stream.rounds
+    accountant = _accountant(spec, stream)
+
+    # repro_torch.faults: one resolved faulty mixer for accounting and
+    # metrics — its pattern is a function of FaultSpec.seed and the round,
+    # so it agrees with the one the chunk program mixes with
+    fault_mixer = spec.resolve_mixer() if spec.faults is not None else None
+    fault_sched = getattr(fault_mixer, "schedule", None)
+
+    chunk_fn, init_fn = make_chunk_program(spec, engine, dev)
+    state, start = _restore(cfg, init_fn(spec.seed))
+    accountant.rounds = start
+    state, outs, xs_all, ys_all, wall = _drive(
+        cfg, chunk_fn, lambda a, b: _stream_chunk(stream, a, b, dev), state,
+        start, T, accountant, fault_sched, dev)
+
+    traj = {f: _gather(outs, f) for f in _TRAJECTORIES}
+    regret = None
+    if cfg.compute_regret and start == 0 and xs_all:
+        from repro_torch.core.regret import cumulative_regret
+        xs_cat, ys_cat = torch.cat(xs_all), torch.cat(ys_all)
+        del xs_all, ys_all
+        regret = cumulative_regret(traj["w_bar_loss"], xs_cat, ys_cat,
+                                   spec.nodes)
+
+    done = T - start
+    return _result(spec, engine, stream, state, traj, regret, T=T,
+                   start=start, wall=wall,
+                   rate=(done / wall) if wall > 0 else float("inf"),
+                   dev=dev, accountant=accountant, fault_sched=fault_sched,
+                   conn=_connectivity(fault_mixer, T, start, dev))
+
+
+def run_batch(spec: RunSpec, seeds, engine: str = "sim", *,
+              exec: ExecConfig | None = None, horizon: int | None = None,
+              device: str | torch.device = "cuda") -> list[RunResult]:
+    """Run one configuration under S seeds in step; S RunResults.
+
+    Counterpart of `repro.api.run_batch`, whose `jax.vmap` of the chunk
+    program lifts every kernel into one launch with a seed grid axis. Here
+    the seed axis is written out: the engine state carries a leading seed
+    axis on theta and the delay ring (`BatchState`), each seed keeps its
+    own noise generator, and the stream chunks of the seeds are stacked
+    (C, S, m, n). On ``backend="cuda"`` a round is ONE ``round_stats`` and
+    ONE ``round_update`` (or ``dual_step``) launch for all S seeds; the
+    reference backend steps each seed's round in seed order.
+
+    Each returned RunResult equals ``run(spec.replace(seed=s), engine,
+    device=device)`` field by field, bit for bit; only ``wall_clock`` (the
+    batch wall / S), ``rounds_per_sec`` (S * rounds / wall) and the timing
+    keys of ``metrics`` differ, and ``metrics["batch"]`` holds the batch's
+    totals. Under a fault scenario every seed runs the same fault pattern
+    (``FaultSpec.seed`` belongs to the scenario, not the run).
+
+    Checkpoints (``checkpoint_every``/``checkpoint_dir``/``resume``) hold
+    every seed's state — tensors, round, generator state, delay ring — and
+    resume bit-identically; a batch resumed at its horizon returns empty
+    trajectories, as `run` does.
+
+    Raises ValueError when the spec's resolved mixer depends on the seed
+    (see `seed_vectorizable`) and ``exec.check_vectorizable`` is set —
+    `repro_torch.sweep` falls back to sequential per-seed runs then.
+    """
+    cfg = _exec_config(exec, "run_batch")
+    seeds = [int(s) for s in seeds]
+    if not seeds:
+        raise ValueError("run_batch needs at least one seed")
+    if cfg.check_vectorizable and not seed_vectorizable(spec, seeds):
+        raise ValueError(
+            "the resolved mixer depends on RunSpec.seed (seeded topology or "
+            "delay_dist); a batch would share one mixing matrix across "
+            "seeds — run sequentially per seed instead (repro_torch.sweep "
+            "does this fallback automatically)")
+    dev = resolve_device(device)
+    specs = [spec.replace(seed=s) for s in seeds]
+    base, S = specs[0], len(seeds)
+    streams = [sp.resolve_stream(device=dev) for sp in specs]
+    T = horizon or base.horizon or streams[0].rounds
+    accountant = _accountant(base, streams[0])
+    fault_mixer = base.resolve_mixer() if base.faults is not None else None
+    fault_sched = getattr(fault_mixer, "schedule", None)
+
+    def chunk(a: int, b: int):
+        pairs = [_stream_chunk(st, a, b, dev) for st in streams]
+        return (torch.stack([p[0] for p in pairs], dim=1),
+                torch.stack([p[1] for p in pairs], dim=1))
+
+    chunk_fn, init_fn = make_batch_chunk_program(base, engine, dev)
+    state, start = _restore(cfg, init_fn(seeds))
+    accountant.rounds = start
+    state, outs, xs_all, ys_all, wall = _drive(
+        cfg, chunk_fn, chunk, state, start, T, accountant, fault_sched, dev)
+
+    stacked = {f: _gather(outs, f) for f in _TRAJECTORIES}   # (T', S, ...)
+    done = T - start
+    rate = S * done / wall if wall > 0 else float("inf")
+    conn = _connectivity(fault_mixer, T, start, dev)
+    batch_info = {"seeds": seeds, "wall_clock_s": wall, "devices": 1,
+                  "pad_seeds": 0, "seed_rounds_per_sec": rate}
+    results = []
+    for i, (sp, st) in enumerate(zip(specs, streams)):
+        traj = {f: None if v is None else np.ascontiguousarray(v[:, i])
+                for f, v in stacked.items()}
+        regret = None
+        if cfg.compute_regret and start == 0 and xs_all:
+            from repro_torch.core.regret import cumulative_regret
+            xs_cat = torch.cat([xs[:, i] for xs in xs_all])
+            ys_cat = torch.cat([ys[:, i] for ys in ys_all])
+            regret = cumulative_regret(traj["w_bar_loss"], xs_cat, ys_cat,
+                                       sp.nodes)
+            del xs_cat, ys_cat
+        res = _result(sp, engine, st, seed_state(engine, state, i), traj,
+                      regret, T=T, start=start, wall=wall / S, rate=rate,
+                      dev=dev, accountant=accountant,
+                      fault_sched=fault_sched, conn=conn)
+        res.metrics["batch"] = dict(batch_info)
+        results.append(res)
+    return results
 
 
 def _fault_metrics(spec: RunSpec, fault_sched, conn: np.ndarray) -> dict:

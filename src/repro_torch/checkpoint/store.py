@@ -8,7 +8,9 @@ the reference names them: ``theta``, ``t`` and ``history`` for a SimState;
 The noise generator's state goes under ``generator`` (where the reference
 keeps its PRNG key under ``key``), so a resumed run continues
 bit-identically: the stream is keyed per absolute round, and the generator
-picks up where it stopped.
+picks up where it stopped. A seed batch's `BatchState` (`run_batch`) is
+saved the same way with a leading seed axis on every leaf, ``generator``
+holding one row per seed.
 """
 from __future__ import annotations
 
@@ -36,7 +38,10 @@ def save_checkpoint(directory: str, step: int, state) -> str:
     arrays = {key: leaf.cpu().numpy()
               for key, leaf in _leaf_arrays(state).items()}
     arrays["t"] = np.asarray(state.t, np.int32)
-    arrays["generator"] = state.generator.get_state().numpy()
+    gens = getattr(state, "generators", None)
+    arrays["generator"] = (
+        np.stack([g.get_state().numpy() for g in gens]) if gens is not None
+        else state.generator.get_state().numpy())
     path = os.path.join(directory, f"ckpt_{step:08d}.npz")
     tmp = path + ".tmp.npz"
     np.savez(tmp, **arrays)
@@ -46,13 +51,14 @@ def save_checkpoint(directory: str, step: int, state) -> str:
 
 def restore_checkpoint(directory: str, like, step: int | None = None):
     """The state saved at ``step`` (default: the latest), of the same type
-    and structure as ``like`` (a freshly initialised state of the same run)
-    and on its device."""
+    and structure as ``like`` (a freshly initialised state of the same run,
+    or batch) and on its device."""
     if step is None:
         step = latest_step(directory)
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {directory}")
-    dev = like.generator.device
+    like_gens = getattr(like, "generators", None)
+    dev = (like_gens[0] if like_gens is not None else like.generator).device
     with np.load(os.path.join(directory, f"ckpt_{step:08d}.npz")) as data:
         def load(key: str, want: torch.Tensor) -> torch.Tensor:
             if key not in data.files:
@@ -75,10 +81,18 @@ def restore_checkpoint(directory: str, like, step: int | None = None):
                          for k in data.files)
         if saved_hist != (like.history is not None):
             raise ValueError("checkpoint and run disagree on the delay ring")
-        gen = torch.Generator(device=dev)
-        gen.set_state(torch.as_tensor(data["generator"]))
+        saved = data["generator"]
+
+        def generator(row: np.ndarray) -> torch.Generator:
+            gen = torch.Generator(device=dev)
+            gen.set_state(torch.as_tensor(row))
+            return gen
+
+        # theta's shape check above has matched the seed count already
+        gens = ({"generator": generator(saved)} if like_gens is None
+                else {"generators": tuple(map(generator, saved))})
         return type(like)(theta=fields["theta"], t=int(data["t"]),
-                          generator=gen, history=fields["history"])
+                          history=fields["history"], **gens)
 
 
 def latest_step(directory: str) -> int | None:

@@ -12,6 +12,19 @@
 // per-node vectors coeff, diag, alive are (m,); A is (m, m); the CSR form of
 // A is indptr (m+1,) int32, indices (nnz,) int32 (ascending in each row) and
 // weights (nnz,) float32. Ragged edges are masked here; nothing is padded.
+// Seed axis: round_stats and round_update take S independent runs (seeds) of
+// one configuration in one launch. Their per-seed arrays are stacked, seed
+// after seed: theta, x, delta, recv, out, tilde (S, m, n); dot, xsq, nnz,
+// wbdot, coeff, alive (S, m); wsum (S, n). A, its CSR form and diag are
+// shared (the seeds share one mixer). The seed is a grid axis (round_stats
+// and the sparse round_update: blockIdx.y; the dense round_update:
+// blockIdx.z), and each seed's blocks do exactly what an S = 1 launch does
+// on that seed's rows, in the same order, so every seed's outputs equal an
+// S = 1 launch's bit for bit. S = 1 is the unbatched call. A block moves its
+// pointers to its seed's arrays only when its seed is not 0: unguarded, the
+// offsets cost an S = 1 launch 1-4 % on the card (more registers in the
+// dense round_update, tools/round_ab.py in turns against the kernels
+// without a seed axis); guarded, 1 %.
 // `vec` = 4 when n % 4 == 0 and every (m, n) pointer is 16-byte aligned (the
 // wrapper decides): rows are then read and written as float4; else 1.
 //
@@ -47,9 +60,11 @@
 //   g+G, ... in ascending order, 16 loads in flight, then groups 0..G-1 in
 //   order; G = 512/m) and resets the counter to 0 for the next call. No
 //   float atomics: results are bit-stable from run to run; nnz is an exact
-//   int32 count. The counter is an int32 the wrapper allocates once per
-//   (device, stream), so calls on two streams never share one and calls on
-//   one stream run in order.
+//   int32 count. Each seed has its own counter and its own (blocks, m)
+//   partials, so a seed's last block finalizes that seed alone. The
+//   counters are an (S_max,) int32 array the wrapper allocates once per
+//   (device, stream), zeroed, and grows (zeroed) when S grows, so calls on
+//   two streams never share one and calls on one stream run in order.
 //   What still bounds it: the finalize. The fence and ticket cost about a
 //   microsecond, and the last block then reads blocks x m x 16 B of partials
 //   (89 KB at m=64) through one SM after the whole grid has finished. Below
@@ -64,6 +79,8 @@
 //   next = mixed - alpha*(coeff*x); dead rows keep theta.
 //   Bound: bytes at the main path (reads theta, delta, x, writes next and
 //   tilde, 12.8 MB, 3.8 us). Two paths, chosen by the caller:
+//   With S seeds the grid is S times the S = 1 grid (W stays that of one
+//   seed): 132 S slab blocks at the main path, each seed's on its own rows.
 //   * sparse (update_sparse_kernel), when the wrapper is given A's CSR form.
 //     The backend passes it when no row of the fixed graph holds more than
 //     16 non-zeros (SPARSE_MAX_ROW_NNZ in the wrapper; the ring has 3).
@@ -286,6 +303,18 @@ stats_kernel(const float* __restrict__ theta, const float* __restrict__ x,
   __shared__ int s_last;
   const int tid = threadIdx.x, tile = blockIdx.x, u0 = tile * W;
   const int cols = W * V;
+  if (blockIdx.y) {  // seed > 0: its rows, partials, counter, outputs
+    const size_t seed = blockIdx.y;
+    theta += seed * m * n;
+    x += seed * m * n;
+    partial += seed * gridDim.x * m;
+    counter += seed;
+    dot += seed * m;
+    xsq += seed * m;
+    nnz += seed * m;
+    wbdot += seed * m;
+    wsum += seed * n;
+  }
   float* T = stage;
   float* X = stage + (size_t)RC * cols;
   const bool single = RC >= m;
@@ -363,8 +392,8 @@ stats_kernel(const float* __restrict__ theta, const float* __restrict__ x,
     if (!single) __syncthreads();
   }
 
-  // the last block to finish sums every block's partials: the barrier
-  // orders the block's writes before thread 0's fence and ticket
+  // the last block of this seed to finish sums its blocks' partials: the
+  // barrier orders the block's writes before thread 0's fence and ticket
   __syncthreads();
   if (tid == 0) {
     __threadfence();
@@ -471,6 +500,17 @@ update_sparse_kernel(const int* __restrict__ indptr,
   __shared__ float s_w[kCsrNnz];
   float* R = reinterpret_cast<float*>(rbuf);
   const int tid = threadIdx.x, u0 = blockIdx.x * W, slab = m * W;
+  if (blockIdx.y) {  // seed > 0: its rows and per-node vectors
+    const size_t seed = blockIdx.y, rows = seed * m * n;
+    theta += rows;
+    delta += rows;
+    x += rows;
+    recv += rows;
+    out += rows;
+    tilde_out += rows;
+    coeff += seed * m;
+    alive += seed * m;
+  }
 
   Vec<V> th[kMaxE], tl[kMaxE], xv[kMaxE], rv[kMaxE];
   load_slab<V>(theta, 0, m, u0, W, units, n, th);
@@ -555,6 +595,17 @@ update_dense_kernel(const float* __restrict__ A,
   const int tid = threadIdx.x;
   const int tx = tid & 7, ty = tid >> 3;                 // 8 x 16
   const int row0 = blockIdx.y * kDM, col0 = blockIdx.x * kDN;
+  if (blockIdx.z) {  // seed > 0: its rows and per-node vectors
+    const size_t seed = blockIdx.z, rows = seed * m * n;
+    theta += rows;
+    delta += rows;
+    x += rows;
+    recv += rows;
+    out += rows;
+    tilde_out += rows;
+    coeff += seed * m;
+    alive += seed * m;
+  }
   const float* P = use_recv ? recv : theta;
 
   auto issue = [&](int st, int k0) {
@@ -677,15 +728,16 @@ inline StatsSlab stats_slab(int m, int n, int vec) {
 
 template <int V>
 int launch_stats(const float* theta, const float* x, float lam_t,
-                 float m_real, int prox_l1, int m, int n, void* scratch,
-                 unsigned* counter, float* dot, float* xsq, int* nnz,
-                 float* wbdot, float* wsum, cudaStream_t s) {
+                 float m_real, int prox_l1, int seeds, int m, int n,
+                 void* scratch, unsigned* counter, float* dot, float* xsq,
+                 int* nnz, float* wbdot, float* wsum, cudaStream_t s) {
   const cudaError_t attr = cudaFuncSetAttribute(
       stats_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kStageBytes);
   if (attr != cudaSuccess) return (int)attr;
   const StatsSlab sl = stats_slab(m, n, V);
-  stats_kernel<V><<<sl.blocks, kSlabThreads, sl.smem, s>>>(
+  const dim3 grid((unsigned)sl.blocks, (unsigned)seeds);
+  stats_kernel<V><<<grid, kSlabThreads, sl.smem, s>>>(
       theta, x, lam_t, m_real, prox_l1, m, n, sl.units, sl.W, sl.RC,
       static_cast<float4*>(scratch), counter, dot, xsq, nnz, wbdot, wsum);
   return (int)cudaGetLastError();
@@ -695,20 +747,23 @@ int launch_stats(const float* theta, const float* x, float lam_t,
 
 extern "C" {
 
-// float4s of scratch round_stats needs: (blocks, m) partials
+// float4s of scratch round_stats needs per seed: (blocks, m) partials
 int64_t rf_stats_scratch_float4s(int m, int n, int vec) {
   return (int64_t)stats_slab(m, n, vec).blocks * m;
 }
 
+// `seeds` runs stacked (see the header), one (S_max,) counter per seed
 int rf_round_stats(const float* theta, const float* x, float lam_t,
-                   float m_real, int prox_l1, int m, int n, int vec,
-                   void* scratch, unsigned* counter, float* dot, float* xsq,
-                   int* nnz, float* wbdot, float* wsum, void* stream) {
+                   float m_real, int prox_l1, int seeds, int m, int n,
+                   int vec, void* scratch, unsigned* counter, float* dot,
+                   float* xsq, int* nnz, float* wbdot, float* wsum,
+                   void* stream) {
+  if (seeds < 1 || seeds > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return vec == 4
-             ? launch_stats<4>(theta, x, lam_t, m_real, prox_l1, m, n,
+             ? launch_stats<4>(theta, x, lam_t, m_real, prox_l1, seeds, m, n,
                                scratch, counter, dot, xsq, nnz, wbdot, wsum, s)
-             : launch_stats<1>(theta, x, lam_t, m_real, prox_l1, m, n,
+             : launch_stats<1>(theta, x, lam_t, m_real, prox_l1, seeds, m, n,
                                scratch, counter, dot, xsq, nnz, wbdot, wsum,
                                s);
 }
@@ -718,14 +773,16 @@ int rf_round_update_sparse(const int* indptr, const int* indices,
                            const float* delta, const float* x,
                            const float* recv, const float* coeff,
                            const float* diag, const float* alive, float alpha,
-                           int use_recv, int noise_self, int m, int n,
-                           int vec, float* out, float* tilde, void* stream) {
+                           int use_recv, int noise_self, int seeds, int m,
+                           int n, int vec, float* out, float* tilde,
+                           void* stream) {
   // the slab holds all m rows (SPARSE_MAX_NODES in the wrapper)
-  if (m > kSlabUnits) return (int)cudaErrorInvalidValue;
+  if (m > kSlabUnits || seeds < 1 || seeds > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int units = n / vec;
   const int W = clamp_int(cdiv(units, kSMs), 1, kSlabUnits / m);
-  const int blocks = (int)cdiv(units, W);
+  const dim3 blocks((unsigned)cdiv(units, W), (unsigned)seeds);
   if (vec == 4)
     update_sparse_kernel<4><<<blocks, kSlabThreads, 0, s>>>(
         indptr, indices, weights, nnz, theta, delta, x, recv, coeff, diag,
@@ -740,10 +797,12 @@ int rf_round_update_sparse(const int* indptr, const int* indices,
 int rf_round_update(const float* A, const float* theta, const float* delta,
                     const float* x, const float* recv, const float* coeff,
                     const float* diag, const float* alive, float alpha,
-                    int use_recv, int noise_self, int m, int n, int vec,
-                    float* out, float* tilde, void* stream) {
+                    int use_recv, int noise_self, int seeds, int m, int n,
+                    int vec, float* out, float* tilde, void* stream) {
+  if (seeds < 1 || seeds > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)cdiv(n, kDN), (unsigned)cdiv(m, kDM));
+  const dim3 grid((unsigned)cdiv(n, kDN), (unsigned)cdiv(m, kDM),
+                  (unsigned)seeds);
   if (vec == 4)
     update_dense_kernel<4><<<grid, kDThreads, 0, s>>>(
         A, theta, delta, x, recv, coeff, diag, alive, alpha, use_recv,

@@ -6,7 +6,7 @@ or raises, and never falls back. `on_card` makes that choice, `check`
 turns a launch's CUDA error code into an exception, `aligned` hands a
 kernel that loads 16 bytes at a time a 16-byte-aligned tensor, and
 `stream_counter` gives a kernel that synchronises its blocks through device
-memory its counter word.
+memory its counter words.
 """
 from __future__ import annotations
 
@@ -43,15 +43,19 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
 _COUNTERS: dict[tuple[str, int, int], torch.Tensor] = {}
 
 
-def stream_counter(kernel: str, dev: torch.device, stream) -> torch.Tensor:
-    """The int32 counter of ``kernel``'s cross-block synchronisation on this
-    device and stream: zeroed once when first used; every launch of the
-    kernel leaves it ready for the next (its source says how), so no call
-    pays a memset. One per stream, so concurrent calls on two streams never
-    share one; calls on one stream run in order."""
+def stream_counter(kernel: str, dev: torch.device, stream,
+                   size: int = 1) -> torch.Tensor:
+    """The int32 counters of ``kernel``'s cross-block synchronisation on
+    this device and stream, at least ``size`` of them (one per seed of a
+    batched launch): zeroed when first used, and replaced by a larger zeroed
+    array when a launch needs more; every launch of the kernel leaves its
+    counters ready for the next (its source says how), so no call pays a
+    memset. One array per stream, so concurrent calls on two streams never
+    share one; calls on one stream run in order (and the caching allocator
+    hands a replaced array's memory only to later work on that stream)."""
     key = (kernel, dev.index, stream.cuda_stream)
     counter = _COUNTERS.get(key)
-    if counter is None:
-        counter = _COUNTERS[key] = torch.zeros(1, dtype=torch.int32,
+    if counter is None or counter.numel() < size:
+        counter = _COUNTERS[key] = torch.zeros(size, dtype=torch.int32,
                                                device=dev)
     return counter

@@ -20,9 +20,17 @@ and the hybrid backend mixes with torch ops between ``round_stats`` and
 
 ``round_stats`` is one launch: each block stages its slab of theta and x
 with all loads in flight at once, and the last block to finish (an int32
-ticket counter, one per device and stream, from `launch.stream_counter`,
-reset by that block) sums every block's per-node partials in a fixed order
-— no float atomics, bit-stable from run to run.
+ticket counter, one per seed, device and stream, from
+`launch.stream_counter`, reset by that block) sums every block's per-node
+partials in a fixed order — no float atomics, bit-stable from run to run.
+
+A seed axis: ``round_stats`` and ``round_update`` take theta, x (and
+delta, recv, coeff, alive) either for one run, (m, n) and (m,), or for S
+runs of one configuration stacked, (S, m, n) and (S, m) — the batch of
+`repro_torch.api.run_batch`. The mix (A, its CSR form, diag) is shared by
+the seeds. A batch is one launch, the seed a grid axis, and each seed's
+outputs equal those of a call on its rows alone, bit for bit (kernel and
+plain version alike).
 
 ``round_update`` mixes one of two ways. Given ``csr`` (a `MixCSR`, A's
 non-zeros; `sparse_mix` builds one from a `SparseGraph` when no row holds
@@ -64,6 +72,7 @@ __all__ = ["round_stats", "round_update", "dual_step", "round_stats_plain",
 
 SOURCE = "round_fused.cu"
 _INT32_MAX = 2**31 - 1
+_MAX_SEEDS = 65_535          # the seed is a grid axis (y or z)
 # the sparse mix wins while a row's non-zeros are < ~0.6 m (csrc header);
 # 16 keeps it there from m = 27 up, and the ring has 3
 SPARSE_MAX_ROW_NNZ = 16
@@ -78,14 +87,14 @@ def library() -> ctypes.CDLL:
     P, F, I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
     lib.rf_stats_scratch_float4s.argtypes = [I, I, I]
     lib.rf_stats_scratch_float4s.restype = ctypes.c_int64
-    lib.rf_round_stats.argtypes = [P, P, F, F, I, I, I, I, P, P, P, P, P, P,
-                                   P, P]
+    lib.rf_round_stats.argtypes = [P, P, F, F, I, I, I, I, I, P, P, P, P, P,
+                                   P, P, P]
     lib.rf_round_stats.restype = I
     lib.rf_round_update.argtypes = [P, P, P, P, P, P, P, P, F, I, I, I, I,
-                                    I, P, P, P]
+                                    I, I, P, P, P]
     lib.rf_round_update.restype = I
     lib.rf_round_update_sparse.argtypes = [P, P, P, I, P, P, P, P, P, P, P,
-                                           F, I, I, I, I, I, P, P, P]
+                                           F, I, I, I, I, I, I, P, P, P]
     lib.rf_round_update_sparse.restype = I
     lib.rf_dual_step.argtypes = [P, P, P, P, P, F, I, I, P, P]
     lib.rf_dual_step.restype = I
@@ -122,6 +131,20 @@ def _node_shape(name: str, t: torch.Tensor) -> tuple[int, int]:
     return int(m), int(n)
 
 
+def _seed_shape(name: str, t: torch.Tensor) -> tuple[tuple, int, int, int]:
+    """(lead, S, m, n) of an (m, n) tensor (lead = (), S = 1) or of an
+    (S, m, n) seed batch (lead = (S,))."""
+    if isinstance(t, torch.Tensor) and t.dim() == 3:
+        S = int(t.shape[0])
+        if not 1 <= S <= _MAX_SEEDS:
+            raise ValueError(f"{name}: {S} seeds, the kernels take 1 to "
+                             f"{_MAX_SEEDS}")
+        return (S,), S, *_node_shape(name, t[0])
+    if not isinstance(t, torch.Tensor) or t.dim() != 2:
+        raise ValueError(f"{name} must be an (m, n) or (S, m, n) tensor")
+    return (), 1, *_node_shape(name, t)
+
+
 def _vec(n: int, *ts: torch.Tensor) -> int:
     """4 when rows can be read as float4 (n % 4 == 0, 16-byte aligned
     data), else 1."""
@@ -140,8 +163,21 @@ def reset_launches() -> None:
 # round_stats
 # ---------------------------------------------------------------------------
 
+def _per_seed(fn, *ts):
+    """``fn`` on each seed's slices of (S, ...) tensors, its outputs
+    stacked on a leading seed axis: a batch computes what S calls do."""
+    outs = [fn(*row) for row in zip(*ts)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return torch.stack(outs)
+
+
 def round_stats_plain(theta, x, lam_t, m_real, *, prox_l1: bool = True):
-    """Plain PyTorch version of `round_stats` (same outputs and types)."""
+    """Plain PyTorch version of `round_stats` (same outputs and types; a
+    seed batch seed by seed)."""
+    if theta.dim() == 3:
+        return _per_seed(lambda t, xx: round_stats_plain(
+            t, xx, lam_t, m_real, prox_l1=prox_l1), theta, x)
     w = soft_threshold(theta, lam_t) if prox_l1 else theta
     wsum = w.sum(dim=0)
     return ((w * x).sum(dim=1), (x * x).sum(dim=1),
@@ -154,29 +190,31 @@ def round_stats(theta: torch.Tensor, x: torch.Tensor, lam_t: float,
     """Per-node round statistics in one pass over theta and x.
 
     Returns ``(dot, xsq, nnz, wbdot, wsum)``: four (m,) per-node reductions
-    (``nnz`` int32, the others float32) and the (n,) column sums of w.
+    (``nnz`` int32, the others float32) and the (n,) column sums of w —
+    for an (S, m, n) seed batch, (S, m) and (S, n), one launch.
     ``m_real`` is the node count w_bar averages over (m on this path).
     """
-    m, n = _node_shape("theta", theta)
+    lead, S, m, n = _seed_shape("theta", theta)
     dev = theta.device
-    _check("theta", theta, (m, n), dev)
-    _check("x", x, (m, n), dev)
+    _check("theta", theta, (*lead, m, n), dev)
+    _check("x", x, (*lead, m, n), dev)
     if not on_card(dev, "round_stats"):
         return round_stats_plain(theta, x, lam_t, m_real, prox_l1=prox_l1)
     lib = library()
     vec = _vec(n, theta, x)
-    scratch = torch.empty(4 * int(lib.rf_stats_scratch_float4s(m, n, vec)),
+    scratch = torch.empty(4 * S * int(lib.rf_stats_scratch_float4s(m, n,
+                                                                   vec)),
                           dtype=torch.float32, device=dev)
-    dot, xsq, wbdot = (torch.empty(m, dtype=torch.float32, device=dev)
-                       for _ in range(3))
-    nnz = torch.empty(m, dtype=torch.int32, device=dev)
-    wsum = torch.empty(n, dtype=torch.float32, device=dev)
+    dot, xsq, wbdot = (torch.empty((*lead, m), dtype=torch.float32,
+                                   device=dev) for _ in range(3))
+    nnz = torch.empty((*lead, m), dtype=torch.int32, device=dev)
+    wsum = torch.empty((*lead, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)
         code = lib.rf_round_stats(
             theta.data_ptr(), x.data_ptr(), float(lam_t), float(m_real),
-            int(bool(prox_l1)), m, n, vec, scratch.data_ptr(),
-            stream_counter("round_stats", dev, stream).data_ptr(),
+            int(bool(prox_l1)), S, m, n, vec, scratch.data_ptr(),
+            stream_counter("round_stats", dev, stream, S).data_ptr(),
             dot.data_ptr(), xsq.data_ptr(), nnz.data_ptr(), wbdot.data_ptr(),
             wsum.data_ptr(), stream.cuda_stream)
     _raise_on_error(code, "round_stats")
@@ -319,7 +357,11 @@ def round_update_plain(A, theta, delta, x, recv, coeff, diag, alive,
                        alpha_t, use_recv, noise_self, csr=None):
     """Plain PyTorch version of `round_update`: (theta_next, tilde). With
     ``csr`` the mix adds each row in the CSR form's order, as the sparse
-    path does; without it, ``A @ r``."""
+    path does; without it, ``A @ r``. A seed batch seed by seed."""
+    if theta.dim() == 3:
+        return _per_seed(lambda th, d, xx, rv, cf, al: round_update_plain(
+            A, th, d, xx, rv, cf, diag, al, alpha_t, use_recv, noise_self,
+            csr), theta, delta, x, recv, coeff, alive)
     tilde = theta + delta
     r = recv if use_recv else tilde
     s = tilde if noise_self else theta
@@ -341,16 +383,19 @@ def round_update(A: torch.Tensor, theta: torch.Tensor, delta: torch.Tensor,
     the clipped hinge coefficient (grad = coeff * x), ``alive`` 1.0 except
     on frozen rows. ``csr``, A's CSR form, selects the sparse path on the
     card (m <= ``SPARSE_MAX_NODES``); without it the dense path runs.
-    Returns ``(theta_next, tilde)``.
+    Returns ``(theta_next, tilde)``. For a seed batch theta, delta, x,
+    recv are (S, m, n), coeff and alive (S, m), and so are the outputs; A,
+    ``csr`` and diag are shared.
     """
-    m, n = _node_shape("theta", theta)
+    lead, S, m, n = _seed_shape("theta", theta)
     dev = theta.device
     _check("A", A, (m, m), dev)
+    _check("diag", diag, (m,), dev)
     for name, t in (("theta", theta), ("delta", delta), ("x", x),
                     ("recv", recv)):
-        _check(name, t, (m, n), dev)
-    for name, t in (("coeff", coeff), ("diag", diag), ("alive", alive)):
-        _check(name, t, (m,), dev)
+        _check(name, t, (*lead, m, n), dev)
+    for name, t in (("coeff", coeff), ("alive", alive)):
+        _check(name, t, (*lead, m), dev)
     if csr is not None:
         if not isinstance(csr, MixCSR):
             raise TypeError(f"csr must be a MixCSR, got {type(csr).__name__}")
@@ -367,11 +412,11 @@ def round_update(A: torch.Tensor, theta: torch.Tensor, delta: torch.Tensor,
                          f"column slab in a block: m <= {SPARSE_MAX_NODES}, "
                          f"got m={m}")
     lib = library()
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    tilde = torch.empty((m, n), dtype=torch.float32, device=dev)
+    out = torch.empty((*lead, m, n), dtype=torch.float32, device=dev)
+    tilde = torch.empty((*lead, m, n), dtype=torch.float32, device=dev)
     vec = _vec(n, theta, delta, x, recv)
-    flags = (float(alpha_t), int(bool(use_recv)), int(bool(noise_self)), m,
-             n, vec, out.data_ptr(), tilde.data_ptr())
+    flags = (float(alpha_t), int(bool(use_recv)), int(bool(noise_self)), S,
+             m, n, vec, out.data_ptr(), tilde.data_ptr())
     rows = (theta.data_ptr(), delta.data_ptr(), x.data_ptr(),
             recv.data_ptr(), coeff.data_ptr(), diag.data_ptr(),
             alive.data_ptr())

@@ -213,3 +213,21 @@ def test_module_docstring_examples_run(name):
     module = importlib.import_module(name)
     result = doctest.testmod(module, optionflags=doctest.ELLIPSIS)
     assert result.failed == 0, f"{name}: {result.failed} doctest failures"
+
+
+def test_package_exports_the_batch_and_the_sweep():
+    """`repro_torch.sweep` carries the names `repro.sweep` does, and the
+    port exports `run_batch` and `seed_vectorizable` where `repro.api`
+    does."""
+    import repro.api as japi
+    import repro.sweep as jsweep
+    import repro_torch.api as api
+    import repro_torch.sweep as sweep
+    from repro_torch.api import runner
+    assert sweep.__all__ == jsweep.__all__
+    assert all(callable(getattr(sweep, name)) or name == "DEFAULT_STORE"
+               for name in sweep.__all__)
+    for name in ("run_batch", "seed_vectorizable"):
+        assert name in api.__all__ and hasattr(japi, name)
+        assert getattr(api, name) is getattr(runner, name)
+        assert getattr(repro_torch, name) is getattr(runner, name)

@@ -7,8 +7,9 @@ in turns.
 OTHER_ROOT is another checkout (for example ``git archive`` of an earlier
 commit, unpacked). In turns OTHER, THIS, THIS, OTHER, a fresh process in
 each checkout's root builds that checkout's ``round_fused.cu`` and times
-its ``dual_step``, ``round_update`` on the sparse path (the ring's CSR
-form) and on the dense path (a softmax A) at the main path's shape
+its ``round_stats``, ``dual_step``, ``round_update`` on the sparse path
+(the ring's CSR form) and on the dense path (a softmax A) at the main
+path's shape
 (m = 64, n = 10,000) with that checkout's ``chip_smoke.py`` helpers: the
 device time per call (profiler, inputs rotated past the L2) and the time
 per back-to-back wrapper call (host included). Prints each run, then one
@@ -21,7 +22,7 @@ import sys
 
 from hinge_ab import in_turns
 
-KERNELS = ("dual_step", "round_update", "round_update_dense")
+KERNELS = ("round_stats", "dual_step", "round_update", "round_update_dense")
 
 CHILD = f"""
 import json, sys
