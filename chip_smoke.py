@@ -117,6 +117,32 @@ Phases (any failure raises, and the script exits non-zero):
                require_store=True`` it must run nothing and give the same
                accuracy and regret aggregates (logged per point, mean +-
                std over the seeds).
+14. serve    — ``repro_torch.serve`` at the paper's width on the bursty
+               stream (the main path's spec with ``stream="bursty"``,
+               nothing cut): a ``ServeService`` (chunk 64, max batch 32,
+               1 ms batching window, queue 1,024, every snapshot kept)
+               trains all 1,562 rounds in its trainer thread while
+               ``BurstyReplay`` drives 256 ticks of the stream's burst
+               counts (~124 requests a tick, 40 KB each) at open throttle.
+               The trainer must launch ``round_stats`` and ``round_update``
+               once a round, all sparse; a served request's snapshot must
+               equal a fresh ``run`` to its round and its margin and label
+               a re-run of the predict step, bit for bit; the last snapshot
+               ``run(spec).final_w``. A service crashed at round 640
+               restarts once from its async checkpoint and ends bit for bit
+               on the clean one; a sequential-composition service with eps
+               budget 10 (chunk 4) exhausts at round 8 and refuses the
+               next request. Logs served/shed/refused, QPS, p50/p99
+               latency, staleness and the trainer's rounds/s under the
+               replay's load and without it, in turns, and the same
+               service with the replay paced at 64 ticks/s.
+15. obs      — 256 rounds of the main path (chunks of 64) with
+               ``repro_torch.obs`` telemetry on (event stream, spans,
+               metrics, ``torch.profiler`` capture) equal to the run with it
+               off, bit for bit; the stream holds run_start, chunk x 4 and
+               run_end and ``launch.obs report`` renders it; the profiler's
+               Chrome trace holds the round kernels' device events. Then
+               rounds/s with telemetry off and on (no profiler), in turns.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line (time,
 bound, plain-version time and launches of every kernel), and last
@@ -1127,12 +1153,13 @@ def _same_run(dist, sim, what: str) -> None:
     """Require a run's RunResult (a dist run, or one seed of a batch) to
     equal another's (the sim run, or the seed's own run) field by field,
     exactly (wall-clock fields, a batch's totals and the engine's name
-    aside), and its final engine state too."""
+    aside, and the telemetry run id in ``metrics``), and its final engine
+    state too."""
     import dataclasses
     import numpy as np
     import torch
     skip = {"engine", "wall_clock", "rounds_per_sec", "final_state"}
-    timing = {"engine", "wall_clock_s", "rounds_per_sec", "batch"}
+    timing = {"engine", "wall_clock_s", "rounds_per_sec", "batch", "obs"}
     for f in dataclasses.fields(dist):
         if f.name in skip:
             continue
@@ -1666,7 +1693,307 @@ def sweep_phase(card: str) -> dict:
     return {"ran_s": ran_s, "load_s": load_s}
 
 
-PATHS = {"round_stats": "main", "round_update": "main",
+# -- 14-15. serving while learning, and telemetry ----------------------------
+
+SERVE_CHUNK = 64
+SERVE_TICKS = 256
+SERVE_CRASH = 640
+SERVE_BUDGET = 10.0
+SERVE_TURNS = ("loaded", "idle", "idle", "loaded", "loaded", "idle")
+SERVE_PACED = 64.0          # ticks/s: ~7,900 requests/s offered
+OBS_ROUNDS = 256
+OBS_CHUNK = 64
+OBS_TURNS = ("off", "on", "on", "off", "off", "on")
+
+
+class _HostStream:
+    """A bursty stream's first rounds, made beforehand and kept on the host:
+    the replay's requests are ready before the service starts, so the
+    replay overlaps the trainer from its first round."""
+
+    def __init__(self, stream, rounds: int):
+        self._counts = stream.counts(0, rounds).cpu().numpy()
+        self._xs = stream.chunk(0, rounds)[0].cpu().numpy()
+
+    def counts(self, t0: int, t1: int):
+        return self._counts[t0:t1]
+
+    def chunk(self, t0: int, t1: int):
+        return self._xs[t0:t1], None
+
+
+def _serve_config(spec, **kw):
+    from repro_torch.serve import ServeConfig
+    base = dict(spec=spec, chunk_rounds=SERVE_CHUNK, max_batch=32,
+                max_wait_ms=1.0, queue_capacity=1024,
+                keep_snapshots=spec.horizon // SERVE_CHUNK + 2,
+                warmup=False, device=DEVICE)
+    return ServeConfig(**{**base, **kw})
+
+
+def _serve_once(spec, replay, rate: float | None = None,
+                timeout_s: float = 600.0) -> dict:
+    """One service over the whole horizon, with ``replay`` driving
+    SERVE_TICKS ticks from the trainer's first publication (open throttle,
+    or ``rate`` ticks/s), or no replay; the trainer joined at the last
+    round before stop(). Returns the service, the replay's result, the
+    trainer's rounds/s over its run and over the replay's window (its
+    rounds there counted by ``round_stats`` launches, one a round, up to
+    the trainer's last publication), and the round kernels' launches of
+    this service's trainer."""
+    from repro_torch.kernels import round_fused as rf
+    from repro_torch.serve import ServeService
+    svc = ServeService(_serve_config(spec))
+    stamps = []
+    publish = svc.trainer.on_publish
+    svc.trainer.on_publish = lambda snap: (
+        stamps.append((time.perf_counter(), snap.round)), publish(snap))
+    rf.reset_launches()
+    svc.start()
+    out, window = None, None
+    if replay is not None:
+        # the first trained snapshot is out before the burst, so every
+        # response names a snapshot the trainer published
+        deadline = time.perf_counter() + timeout_s
+        while svc.state.published < 2 and time.perf_counter() < deadline:
+            time.sleep(1e-3)
+        r0, t0 = rf.round_stats.launches, time.perf_counter()
+        out = replay.drive(svc, 0, SERVE_TICKS, rate_ticks_per_s=rate,
+                           timeout_s=timeout_s)
+        window = (r0, t0, rf.round_stats.launches, time.perf_counter())
+    svc.trainer.join(timeout_s)
+    launches = _launches()
+    svc.stop(timeout_s)
+    rate_in_window = None
+    if window is not None:
+        r0, t0, r1, t1 = window
+        end = min(t1, stamps[-1][0])      # the trainer may finish first
+        if r1 > r0 and end > t0:
+            rate_in_window = (r1 - r0) / (end - t0)
+    return {"svc": svc, "replay": out, "window": window,
+            "rate": svc.trainer.result.rounds_per_sec,
+            "rate_in_window": rate_in_window, "launches": launches}
+
+
+def _serve_stats(run: dict) -> str:
+    """The replay's counts, QPS, latency, staleness (rounds of publication
+    lag, the reference's measure: 0 while nothing is published) and the
+    served snapshot's age (publication to answer: grows while the trainer
+    stalls) of one service."""
+    import numpy as np
+    svc, out = run["svc"], run["replay"]
+    lat = np.asarray(svc.stats_.latencies_s) * 1e3
+    stale = np.asarray(svc.stats_.staleness, np.float64)
+    age = np.asarray(svc.stats_.snapshot_ages_s) * 1e3
+    adm = svc.stats()["admission"]
+    return (f"{out['submitted']} requests over {SERVE_TICKS} ticks (40 KB "
+            f"each): served {out['served']}, shed {out['shed']} "
+            f"({adm['shed_reasons']}), refused {out['refused']} in "
+            f"{out['wall_s']} s = {out['qps']} QPS; {adm['batches']} "
+            f"batches (mean {adm['mean_batch']}); latency p50 "
+            f"{float(np.percentile(lat, 50))} ms, p99 "
+            f"{float(np.percentile(lat, 99))} ms; staleness (publication "
+            f"lag) mean {float(stale.mean())}, max {int(stale.max())} "
+            f"rounds; served snapshot's age mean {float(age.mean())} ms, "
+            f"max {float(age.max())} ms; trainer {run['rate_in_window']} "
+            f"rounds/s in the replay's window")
+
+
+def serve_phase(card: str) -> dict:
+    """Phase 14: `repro_torch.serve` at the paper's width on the bursty
+    stream (m=64, n=10,000, T=1,562, ring, Laplace eps=1, fused): a
+    service whose trainer publishes every 64 rounds while `BurstyReplay`
+    drives 256 ticks at open throttle. The trainer launches each round
+    kernel once a round, all sparse; a served request's snapshot equals a
+    fresh run to its round bit for bit and its margin and label a re-run of
+    the predict step; the last snapshot equals ``run(spec).final_w``. A
+    service crashed at round 640 restarts once from its checkpoint and ends
+    bit for bit on the clean one; a sequential-composition service with
+    eps budget 10 (chunk 4) exhausts at round 8 and refuses. The trainer's
+    rounds/s with and without the replay's load, in turns; and one more
+    service with the replay paced at SERVE_PACED ticks/s. Returns the
+    launches of the first loaded service."""
+    import statistics as st
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import ExecConfig, run
+    from repro_torch.serve import BurstyReplay, ServeService
+    spec = paper_spec(stream="bursty")
+    T = spec.horizon
+    host = _HostStream(spec.resolve_stream(device=DEVICE), SERVE_TICKS)
+    replay = BurstyReplay(host)
+    runs = {"loaded": [], "idle": []}
+    for kind in SERVE_TURNS:
+        runs[kind].append(_serve_once(spec, replay if kind == "loaded"
+                                      else None))
+    first = runs["loaded"][0]
+    _require_path(first["launches"], "sparse", T, "serve trainer")
+    svc, out = first["svc"], first["replay"]
+    require(out["submitted"] == replay.total_requests(0, SERVE_TICKS)
+            and out["served"] + out["shed"] + out["refused"]
+            == out["submitted"], f"serve: requests lost: {out}")
+    require(out["served"] > 0 and out["refused"] == 0,
+            f"serve: served {out['served']}, refused {out['refused']}")
+    final = svc.state.current
+    require(final.round == T and svc.trainer.round == T,
+            f"serve: trainer stopped at {svc.trainer.round}")
+
+    served = [r for r in out["requests"] if r.status == "ok"]
+    sample = max(served, key=lambda r: r.snapshot_version)
+    require(sample.snapshot_round > 0, "serve: no request was served "
+            "from a trained snapshot")
+    require(svc.verify(sample), f"serve: the request served from round "
+            f"{sample.snapshot_round} differs from a fresh run to it")
+    full = run(spec, exec=ExecConfig(chunk_rounds=256, compute_regret=False,
+                                     warmup=False), device=DEVICE)
+    require(np.array_equal(final.w.cpu().numpy(), full.final_w),
+            "serve: the last snapshot differs from run(spec).final_w")
+    log(f"serve: request at node {sample.node} served from snapshot "
+        f"{sample.snapshot_version} (round {sample.snapshot_round}) equals "
+        f"a fresh run to that round and a re-run of the predict step, bit "
+        f"for bit; the last snapshot (round {final.round}) equals "
+        f"run(spec).final_w, bit for bit | {card}")
+
+    log(f"serve, open throttle: {_serve_stats(first)} | {card}")
+    paced = _serve_once(spec, replay, rate=SERVE_PACED)
+    log(f"serve, paced at {SERVE_PACED} ticks/s: {_serve_stats(paced)} "
+        f"| {card}")
+    loaded = [r["rate_in_window"] for r in runs["loaded"]]
+    whole = [r["rate"] for r in runs["loaded"]]
+    idle = [r["rate"] for r in runs["idle"]]
+    measured = [x for x in loaded if x is not None]
+    ratio = (st.median(measured) / st.median(idle) if measured
+             else "not measured (the trainer ran no round in a window)")
+    log(f"serve: trainer rounds/s in turns {SERVE_TURNS}: under the "
+        f"replay's load (its rounds in the replay's window) {loaded}, whole "
+        f"loaded runs {whole}, no load {idle}; median under load / no load "
+        f"{ratio}; replay windows "
+        f"{[r['replay']['wall_s'] for r in runs['loaded']]} s | {card}")
+    for r in runs["loaded"][1:] + runs["idle"] + [paced]:
+        require(torch.equal(r["svc"].state.current.w, final.w),
+                "serve: the services' last snapshots differ")
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        crashed = ServeService(_serve_config(
+            spec, crash_at_round=SERVE_CRASH, checkpoint_dir=ckpt)).start()
+        crashed.trainer.join(600)
+        crashed.stop()
+    snap = crashed.state.current
+    require(crashed.trainer.restarts == 1,
+            f"serve crash: {crashed.trainer.restarts} restarts")
+    require(snap.round == T and all(torch.equal(getattr(snap, f),
+                                                getattr(final, f))
+                                    for f in ("theta", "w", "w_bar")),
+            "serve crash: the restarted trainer's last snapshot differs")
+    log(f"serve crash at round {SERVE_CRASH}: one restart from the round "
+        f"{SERVE_CRASH - SERVE_CHUNK} checkpoint, last snapshot (round {T}) "
+        f"equal to the clean service's, bit for bit | {card}")
+
+    seq = ServeService(_serve_config(
+        spec, chunk_rounds=4, composition="sequential",
+        eps_budget=SERVE_BUDGET)).start()
+    deadline = time.perf_counter() + 120
+    while not seq.exhausted() and time.perf_counter() < deadline:
+        time.sleep(0.01)
+    refused = seq.submit(np.ones(spec.dim, np.float32), node=0).wait(60)
+    seq.stop()
+    require(seq.exhausted() and seq.state.current.round == 8
+            and refused.status == "refused",
+            f"serve sequential: exhausted {seq.exhausted()} at round "
+            f"{seq.state.current.round}, request {refused.status}")
+    log(f"serve sequential, eps budget {SERVE_BUDGET}: exhausted at round "
+        f"{seq.state.current.round} (eps {seq.eps_spent()}), next request "
+        f"{refused.status} | {card}")
+    return {"launches": first["launches"], "qps": out["qps"],
+            "loaded": loaded, "idle": idle}
+
+
+def _trace_kernels(trace_dir) -> dict:
+    """The device events of the round kernels in the profiler's Chrome
+    traces under ``trace_dir``: {kernel: count} (host-side launch events
+    are named after the runtime call, not the kernel)."""
+    counts = {"round_stats": 0, "round_update": 0}
+    for path in Path(trace_dir).glob("trace_*.json"):
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+        for e in events:
+            name = str(e.get("name", ""))
+            if e.get("ph") == "X" and "stats_kernel" in name:
+                counts["round_stats"] += 1
+            elif e.get("ph") == "X" and "update_sparse_kernel" in name:
+                counts["round_update"] += 1
+    return counts
+
+
+def telemetry_phase(card: str) -> dict:
+    """Phase 15: 256 rounds of the main path in chunks of 64 with
+    `repro_torch.obs` telemetry on (event stream, spans, metrics, the
+    profiler) equal to the run with it off, field by field and state, bit
+    for bit; the stream holds run_start, chunk x 4 and run_end, and
+    ``launch.obs report`` renders it; the profiler's Chrome trace holds the
+    round kernels' device events. Then rounds/s off and on (events and
+    spans, no profiler) in turns."""
+    import contextlib
+    import io
+    import statistics as st
+    import tempfile
+    from repro_torch import ExecConfig, run
+    from repro_torch.kernels import round_fused as rf
+    from repro_torch.launch import obs as obs_cli
+    from repro_torch.obs import Telemetry, read_events
+    spec = paper_spec(horizon=OBS_ROUNDS)
+    cfg = ExecConfig(chunk_rounds=OBS_CHUNK, compute_regret=False,
+                     warmup=False)
+    off = run(spec, exec=cfg, device=DEVICE)
+    with tempfile.TemporaryDirectory() as d:
+        for attempt in range(1, PROFILER_TRIES + 1):
+            events, prof = Path(d) / f"events{attempt}.jsonl", \
+                Path(d) / f"prof{attempt}"
+            tel = Telemetry(events=str(events), profile_dir=str(prof))
+            rf.reset_launches()
+            on = run(spec, exec=cfg.replace(obs=tel), device=DEVICE)
+            launches = _launches()
+            tel.close()
+            kernels = _trace_kernels(prof)
+            if all(kernels.values()):
+                break
+            log(f"telemetry: profiler session {attempt} of {PROFILER_TRIES}"
+                f" recorded no round kernel: {kernels}")
+        _require_path(launches, "sparse", OBS_ROUNDS, "telemetry run")
+        _same_run(on, off, "telemetry on vs off")
+        kinds = [e["event"] for e in read_events(str(events))]
+        require(kinds == ["run_start"] + ["chunk"] * (OBS_ROUNDS // OBS_CHUNK)
+                + ["run_end"], f"telemetry: event stream {kinds}")
+        require(all(kernels.values()), f"telemetry: the profiler's trace "
+                f"holds no round kernel event: {kernels}")
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            code = obs_cli.main(["report", "--events", str(events)])
+        report = text.getvalue()
+        require(code == 0 and f"run {on.metrics['obs']['run_id']}" in report
+                and f"chunks: {OBS_ROUNDS // OBS_CHUNK}" in report,
+                f"telemetry: report rendered {report!r} (exit {code})")
+    spans = tel.tracer.summary()
+    log(f"telemetry: {OBS_ROUNDS} rounds with events, spans and the "
+        f"profiler equal to the run without, bit for bit; events {kinds}; "
+        f"spans {json.dumps(spans)}; trace device events {kernels}; "
+        f"profiled run {on.rounds_per_sec} rounds/s | {card}")
+    log("telemetry: launch.obs report:\n" + report.rstrip())
+    rates = {"off": [], "on": []}
+    for kind in OBS_TURNS:
+        tel = Telemetry() if kind == "on" else None
+        rates[kind].append(run(spec, exec=cfg.replace(obs=tel),
+                               device=DEVICE).rounds_per_sec)
+    ratio = st.median(rates["on"]) / st.median(rates["off"])
+    log(f"telemetry: rounds/s over {OBS_ROUNDS} rounds in turns "
+        f"{OBS_TURNS} (on: spans, metrics and events, no profiler): "
+        f"{json.dumps(rates)}; median on / off {ratio} | {card}")
+    return {"launches": launches, "rates": rates,
+            "profiled_rate": on.rounds_per_sec}
+
+
+PATHS = {"round_stats": "main, serve", "round_update": "main, serve",
          "dual_step": "hybrid (phase 6, complete, time_varying, faults)",
          "pdomd_update": "ops", "hinge_grad": "ops"}
 
@@ -1690,6 +2017,8 @@ def main() -> int:
     faults = faults_phase(main_res, card)
     batch = batch_phase(main_res, card)
     sweep_phase(card)
+    serve = serve_phase(card)
+    telemetry = telemetry_phase(card)
     hybrid = {"hybrid": launches["dual_step"],
               **{name: run["launches"]["dual_step"]
                  for name, run in topologies.items()
@@ -1712,7 +2041,14 @@ def main() -> int:
     for name in ("round_stats", "round_update"):
         kernels[name]["batched"] = batched[name]
         kernels[name]["batch_launches"] = batch["launches"][name]
+        # the serving trainer's rounds are the main path's too (phase 14)
+        kernels[name]["main_launches"] = kernels[name]["launches"]
+        kernels[name]["serve_launches"] = serve["launches"][name]
+        kernels[name]["launches"] += serve["launches"][name]
+        kernels[name]["obs_launches"] = telemetry["launches"][name]
     kernels["round_update"]["batch_sparse_launches"] = batch["launches"][
+        "round_update_sparse"]
+    kernels["round_update"]["sparse_launches"] += serve["launches"][
         "round_update_sparse"]
     kernels["hinge_grad"]["slab_launches"] = launches["hinge_grad_slab"]
     log("topologies (rounds/s, accuracy, regret[-1]): " + json.dumps(

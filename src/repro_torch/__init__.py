@@ -29,6 +29,11 @@ kernel a round for all of them, each seed's result equal to its own run —
 and `repro_torch.sweep` runs grids of them into a results store:
 
     batch = run_batch(spec, seeds=(0, 1, 2))    # [RunResult] * 3
+
+`repro_torch.serve` answers predictions from published snapshots while a
+background thread keeps training (`ServeService`, `BurstyReplay`), and
+`repro_torch.obs` records spans, metrics, run events and profiler traces
+(``python -m repro_torch.launch.obs report`` renders a stream).
 """
 from repro_torch.api import (FAULTS, ExecConfig, FaultSpec, GossipDP,
                              GossipState, RunResult, RunSpec, degradation,

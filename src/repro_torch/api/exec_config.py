@@ -41,6 +41,8 @@ class ExecConfig:
     devices / mesh:     the reference's seed-axis sharding of a batch over
                         several devices; not ported (one card here) — any
                         value but None raises.
+    obs:                a `repro_torch.obs.Telemetry` (default: the ambient
+                        `repro_torch.obs.active()`).
     """
 
     chunk_rounds: int = 512
@@ -52,6 +54,7 @@ class ExecConfig:
     devices: Any = None
     mesh: Any = None
     check_vectorizable: bool = True
+    obs: Any = None
 
     def __post_init__(self):
         if self.chunk_rounds < 1:

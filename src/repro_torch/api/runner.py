@@ -10,7 +10,10 @@ accuracy and sparsity trajectories, computes the Definition-3 regret, and
 supports periodic checkpoints with bit-identical resume. Under a fault
 scenario (``RunSpec.faults``) crashed rounds are not charged to a node's
 eps, and the result carries the run's per-round connectivity and
-``metrics["faults"]``.
+``metrics["faults"]``. ``on_chunk`` hands the state at every chunk
+boundary to a caller (the serving layer publishes snapshots from it), and
+``ExecConfig.obs`` (`repro_torch.obs`) records spans, metrics and run
+events of the loop without touching its math.
 
 The run happens on ``device`` — CUDA unless the caller passes
 ``device="cpu"``. The stream's chunks, the per-round outputs and the regret
@@ -53,6 +56,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import obs as obslib
 from repro_torch.api.exec_config import ExecConfig
 from repro_torch.api.spec import RunSpec
 from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint
@@ -511,40 +515,76 @@ def _restore(cfg: ExecConfig, state):
 
 def _drive(cfg: ExecConfig, chunk_fn: Callable, chunk: Callable, state,
            start: int, T: int, accountant: PrivacyAccountant, fault_sched,
-           dev: torch.device):
+           dev: torch.device, *, tel, run_id: str | None, kind: str,
+           span_args: dict, on_chunk: Callable | None = None):
     """The timed chunk loop of rounds [start, T): (state, per-chunk
-    outputs, per-chunk xs and ys kept for the regret, loop wall seconds).
-    ``chunk(a, b)`` makes the stream's rounds [a, b) on ``dev``."""
+    outputs, per-chunk xs and ys kept for the regret, loop wall seconds,
+    the round it stopped at). ``chunk(a, b)`` makes the stream's rounds
+    [a, b) on ``dev``.
+
+    The loop synchronises with the card only at its end, unless something
+    reads a chunk boundary: ``on_chunk(b, state, accountant)`` (a truthy
+    return stops the loop there) or an enabled ``tel``, whose ``<kind>.chunk``
+    span times each chunk to its end. Telemetry only observes: spans,
+    metrics and events never touch the state."""
     bounds = _boundaries(start, T, cfg.chunk_rounds, cfg.checkpoint_every)
     first_chunk = None
     if cfg.warmup and len(bounds) > 1:
         first_chunk = chunk(bounds[0], bounds[1])
-        chunk_fn(_copy_state(state), first_chunk[0][:1], first_chunk[1][:1])
-        synchronize(dev)
+        with tel.span(f"{kind}.compile", run_id=run_id, **span_args):
+            chunk_fn(_copy_state(state), first_chunk[0][:1],
+                     first_chunk[1][:1])
+            synchronize(dev)
 
+    sync_chunks = on_chunk is not None or tel.enabled
+    seeds = span_args.get("seeds")
+    chunk_args = {} if seeds is None else {"seeds": seeds}
     outs, xs_all, ys_all = [], [], []
-    t0 = time.perf_counter()
-    for a, b in zip(bounds[:-1], bounds[1:]):
-        if a == bounds[0] and first_chunk is not None:
-            xs, ys = first_chunk   # don't regenerate the warmup chunk
-        else:
-            xs, ys = chunk(a, b)
-        state, out = chunk_fn(state, xs, ys)
-        if fault_sched is not None and fault_sched.has_crashes:
-            # crashed rounds release no noised broadcast — not charged
-            accountant.step(b - a,
-                            participation=fault_sched.participation(a, b))
-        else:
-            accountant.step(b - a)
-        outs.append(out)
-        if cfg.compute_regret:
-            xs_all.append(xs)
-            ys_all.append(ys)
-        if (cfg.checkpoint_every and cfg.checkpoint_dir
-                and b % cfg.checkpoint_every == 0):
-            save_checkpoint(cfg.checkpoint_dir, b, state)
-    synchronize(dev)
-    return state, outs, xs_all, ys_all, time.perf_counter() - t0
+    done_to = start
+    with tel.profile():
+        t0 = time.perf_counter()
+        for a, b in zip(bounds[:-1], bounds[1:]):
+            if a == bounds[0] and first_chunk is not None:
+                xs, ys = first_chunk   # don't regenerate the warmup chunk
+            else:
+                xs, ys = chunk(a, b)
+            with tel.span(f"{kind}.chunk", round_start=a, round_end=b,
+                          **chunk_args) as sp:
+                state, out = chunk_fn(state, xs, ys)
+                if sync_chunks:
+                    synchronize(dev)
+            if fault_sched is not None and fault_sched.has_crashes:
+                # crashed rounds release no noised broadcast — not charged
+                accountant.step(b - a,
+                                participation=fault_sched.participation(a, b))
+            else:
+                accountant.step(b - a)
+            done_to = b
+            if tel.enabled:
+                secs = sp.duration_s
+                eps_now = accountant.guarantee_at(b)
+                tel.metrics.counter(f"{kind}.rounds").inc(b - a)
+                tel.metrics.histogram(f"{kind}.chunk_seconds").observe(secs)
+                tel.metrics.gauge(f"{kind}.eps_total").set(eps_now)
+                tel.emit("chunk", run_id=run_id, round_start=a, round_end=b,
+                         seconds=secs,
+                         rounds_per_sec=((b - a) / secs if secs > 0
+                                         else None),
+                         eps=eps_now)
+            outs.append(out)
+            if cfg.compute_regret:
+                xs_all.append(xs)
+                ys_all.append(ys)
+            if (cfg.checkpoint_every and cfg.checkpoint_dir
+                    and b % cfg.checkpoint_every == 0):
+                with tel.span(f"{kind}.checkpoint", step=b):
+                    save_checkpoint(cfg.checkpoint_dir, b, state)
+                tel.emit("checkpoint", run_id=run_id, step=b)
+            if on_chunk is not None and on_chunk(b, state, accountant):
+                break
+        synchronize(dev)
+        wall = time.perf_counter() - t0
+    return state, outs, xs_all, ys_all, wall, done_to
 
 
 def _gather(outs: list, field: str) -> np.ndarray | None:
@@ -572,8 +612,7 @@ def _result(spec: RunSpec, engine: str, stream, state, traj: dict, regret,
         wall_clock=wall,
         rounds_per_sec=rate,
         device=str(dev),
-        stream=(spec.stream if isinstance(spec.stream, str)
-                else type(stream).__name__),
+        stream=_stream_name(spec, stream),
         eps_ledger=np.asarray(accountant.ledger(T)[start:]),
         privacy=accountant.summary(),
         regret=regret,
@@ -605,8 +644,14 @@ def _exec_config(exec: ExecConfig | None, caller: str) -> ExecConfig:
     return cfg
 
 
+def _stream_name(spec: RunSpec, stream) -> str:
+    return (spec.stream if isinstance(spec.stream, str)
+            else type(stream).__name__)
+
+
 def run(spec: RunSpec, engine: str = "sim", *,
         exec: ExecConfig | None = None, horizon: int | None = None,
+        on_chunk: Callable | None = None,
         device: str | torch.device = "cuda") -> RunResult:
     """Drive one run end to end on ``engine`` ("sim" or "dist") and return
     a RunResult.
@@ -617,6 +662,26 @@ def run(spec: RunSpec, engine: str = "sim", *,
     ``checkpoint_every`` saves the engine state every N rounds into
     ``checkpoint_dir``; ``resume=True`` restores the latest checkpoint and
     continues bit-identically.
+
+    ``on_chunk(round_end, state, accountant)`` fires after every chunk with
+    the ABSOLUTE round it ended on, the engine state at that round (the
+    card synchronised: safe to publish or copy) and the live accountant; a
+    truthy return stops the run at that boundary, and the trajectories,
+    the eps ledger and ``rounds`` then cover only the completed rounds.
+    The serving layer (`repro_torch.serve`) publishes its snapshots from
+    this hook: a state at round r equals a fresh ``run(spec, horizon=r)``'s
+    bit for bit, since streams are keyed per absolute round and chunking
+    never changes a round's math.
+
+    ``exec.obs`` (default: the ambient `repro_torch.obs.active()`) is the
+    telemetry: when enabled, the run's warm-up, chunks, checkpoints and
+    regret are spans (``run.compile``, ``run.chunk``, ``run.checkpoint``,
+    ``run.regret``), ``run.rounds``, ``run.chunk_seconds``,
+    ``run.eps_total`` (and ``faults.mean_connectivity``) go into its
+    metrics, ``run_start``/``chunk``/``checkpoint``/``run_end`` into its
+    event stream, the chunk loop runs under its profiler, and
+    ``metrics["obs"]`` holds the run id. A run with telemetry on equals one
+    with it off bit for bit.
     """
     cfg = _exec_config(exec, "run")
     dev = resolve_device(device)
@@ -629,13 +694,20 @@ def run(spec: RunSpec, engine: str = "sim", *,
     # so it agrees with the one the chunk program mixes with
     fault_mixer = spec.resolve_mixer() if spec.faults is not None else None
     fault_sched = getattr(fault_mixer, "schedule", None)
+    tel = cfg.obs if cfg.obs is not None else obslib.active()
+    run_id = tel.new_run_id() if tel.enabled else None
 
     chunk_fn, init_fn = make_chunk_program(spec, engine, dev)
     state, start = _restore(cfg, init_fn(spec.seed))
     accountant.rounds = start
-    state, outs, xs_all, ys_all, wall = _drive(
+    if tel.enabled:
+        tel.emit("run_start", run_id=run_id, kind="run", engine=engine,
+                 stream=_stream_name(spec, stream), nodes=spec.nodes,
+                 dim=spec.dim, horizon=T, start_round=start)
+    state, outs, xs_all, ys_all, wall, T = _drive(
         cfg, chunk_fn, lambda a, b: _stream_chunk(stream, a, b, dev), state,
-        start, T, accountant, fault_sched, dev)
+        start, T, accountant, fault_sched, dev, tel=tel, run_id=run_id,
+        kind="run", span_args={"engine": engine}, on_chunk=on_chunk)
 
     traj = {f: _gather(outs, f) for f in _TRAJECTORIES}
     regret = None
@@ -643,15 +715,26 @@ def run(spec: RunSpec, engine: str = "sim", *,
         from repro_torch.core.regret import cumulative_regret
         xs_cat, ys_cat = torch.cat(xs_all), torch.cat(ys_all)
         del xs_all, ys_all
-        regret = cumulative_regret(traj["w_bar_loss"], xs_cat, ys_cat,
-                                   spec.nodes)
+        with tel.span("run.regret", rounds=int(xs_cat.shape[0])):
+            regret = cumulative_regret(traj["w_bar_loss"], xs_cat, ys_cat,
+                                       spec.nodes)
 
     done = T - start
-    return _result(spec, engine, stream, state, traj, regret, T=T,
-                   start=start, wall=wall,
-                   rate=(done / wall) if wall > 0 else float("inf"),
-                   dev=dev, accountant=accountant, fault_sched=fault_sched,
-                   conn=_connectivity(fault_mixer, T, start, dev))
+    result = _result(spec, engine, stream, state, traj, regret, T=T,
+                     start=start, wall=wall,
+                     rate=(done / wall) if wall > 0 else float("inf"),
+                     dev=dev, accountant=accountant, fault_sched=fault_sched,
+                     conn=_connectivity(fault_mixer, T, start, dev))
+    if tel.enabled:
+        if "faults" in result.metrics:
+            tel.metrics.gauge("faults.mean_connectivity").set(
+                result.metrics["faults"]["mean_connectivity"])
+        result.metrics["obs"] = {"run_id": run_id}
+        tel.emit("run_end", run_id=run_id, rounds=T, wall_clock_s=wall,
+                 rounds_per_sec=result.rounds_per_sec,
+                 accuracy=result.accuracy,
+                 eps_total=result.privacy.get("eps_total"))
+    return result
 
 
 def run_batch(spec: RunSpec, seeds, engine: str = "sim", *,
@@ -702,6 +785,8 @@ def run_batch(spec: RunSpec, seeds, engine: str = "sim", *,
     accountant = _accountant(base, streams[0])
     fault_mixer = base.resolve_mixer() if base.faults is not None else None
     fault_sched = getattr(fault_mixer, "schedule", None)
+    tel = cfg.obs if cfg.obs is not None else obslib.active()
+    run_id = tel.new_run_id() if tel.enabled else None
 
     def chunk(a: int, b: int):
         pairs = [_stream_chunk(st, a, b, dev) for st in streams]
@@ -711,8 +796,15 @@ def run_batch(spec: RunSpec, seeds, engine: str = "sim", *,
     chunk_fn, init_fn = make_batch_chunk_program(base, engine, dev)
     state, start = _restore(cfg, init_fn(seeds))
     accountant.rounds = start
-    state, outs, xs_all, ys_all, wall = _drive(
-        cfg, chunk_fn, chunk, state, start, T, accountant, fault_sched, dev)
+    if tel.enabled:
+        tel.emit("run_start", run_id=run_id, kind="run_batch", engine=engine,
+                 stream=_stream_name(spec, streams[0]), nodes=spec.nodes,
+                 dim=spec.dim, horizon=T, start_round=start, seeds=seeds,
+                 devices=1)
+    state, outs, xs_all, ys_all, wall, _ = _drive(
+        cfg, chunk_fn, chunk, state, start, T, accountant, fault_sched, dev,
+        tel=tel, run_id=run_id, kind="run_batch",
+        span_args={"engine": engine, "seeds": S})
 
     stacked = {f: _gather(outs, f) for f in _TRAJECTORIES}   # (T', S, ...)
     done = T - start
@@ -729,15 +821,26 @@ def run_batch(spec: RunSpec, seeds, engine: str = "sim", *,
             from repro_torch.core.regret import cumulative_regret
             xs_cat = torch.cat([xs[:, i] for xs in xs_all])
             ys_cat = torch.cat([ys[:, i] for ys in ys_all])
-            regret = cumulative_regret(traj["w_bar_loss"], xs_cat, ys_cat,
-                                       sp.nodes)
+            with tel.span("run_batch.regret", seed=seeds[i]):
+                regret = cumulative_regret(traj["w_bar_loss"], xs_cat,
+                                           ys_cat, sp.nodes)
             del xs_cat, ys_cat
         res = _result(sp, engine, st, seed_state(engine, state, i), traj,
                       regret, T=T, start=start, wall=wall / S, rate=rate,
                       dev=dev, accountant=accountant,
                       fault_sched=fault_sched, conn=conn)
         res.metrics["batch"] = dict(batch_info)
+        if tel.enabled:
+            res.metrics["obs"] = {"run_id": run_id}
         results.append(res)
+    if tel.enabled:
+        if conn is not None:
+            tel.metrics.gauge("faults.mean_connectivity").set(
+                results[0].metrics["faults"]["mean_connectivity"])
+        tel.emit("run_end", run_id=run_id, rounds=T, wall_clock_s=wall,
+                 rounds_per_sec=rate if wall > 0 else None,
+                 eps_total=accountant.summary().get("eps_total"),
+                 seeds=seeds)
     return results
 
 

@@ -11,6 +11,11 @@ bit-identically: the stream is keyed per absolute round, and the generator
 picks up where it stopped. A seed batch's `BatchState` (`run_batch`) is
 saved the same way with a leading seed axis on every leaf, ``generator``
 holding one row per seed.
+
+Any other tree — a dict, list or tuple of tensors or arrays, such as the
+serving layer's ``{"theta": tensor}`` (`repro_torch.serve`) — is saved
+leaf by leaf under the same path names (``theta``; ``a/b`` for nested
+keys) and restored into the structure, dtypes and devices of a like tree.
 """
 from __future__ import annotations
 
@@ -25,6 +30,13 @@ from repro_torch.core import tree
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step"]
 
 
+def _is_engine_state(state) -> bool:
+    """A SimState, GossipState or BatchState (theta, t and generators)."""
+    fields = getattr(state, "_fields", ())
+    return "theta" in fields and ("generator" in fields
+                                  or "generators" in fields)
+
+
 def _leaf_arrays(state) -> dict[str, torch.Tensor]:
     """{path: tensor} of the state's theta and history leaves."""
     out = {}
@@ -33,8 +45,18 @@ def _leaf_arrays(state) -> dict[str, torch.Tensor]:
     return out
 
 
+def _host(leaf) -> np.ndarray:
+    return (leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor)
+            else np.asarray(leaf))
+
+
 def save_checkpoint(directory: str, step: int, state) -> str:
+    """Write ``state`` (an engine state, or any tree of tensors and
+    arrays) as ``ckpt_<step>.npz`` in ``directory``; returns its path."""
     os.makedirs(directory, exist_ok=True)
+    if not _is_engine_state(state):
+        return _write(directory, step, {key: _host(leaf) for key, leaf
+                                        in tree.flatten_with_path(state)})
     arrays = {key: leaf.cpu().numpy()
               for key, leaf in _leaf_arrays(state).items()}
     arrays["t"] = np.asarray(state.t, np.int32)
@@ -42,6 +64,10 @@ def save_checkpoint(directory: str, step: int, state) -> str:
     arrays["generator"] = (
         np.stack([g.get_state().numpy() for g in gens]) if gens is not None
         else state.generator.get_state().numpy())
+    return _write(directory, step, arrays)
+
+
+def _write(directory: str, step: int, arrays: dict) -> str:
     path = os.path.join(directory, f"ckpt_{step:08d}.npz")
     tmp = path + ".tmp.npz"
     np.savez(tmp, **arrays)
@@ -52,11 +78,14 @@ def save_checkpoint(directory: str, step: int, state) -> str:
 def restore_checkpoint(directory: str, like, step: int | None = None):
     """The state saved at ``step`` (default: the latest), of the same type
     and structure as ``like`` (a freshly initialised state of the same run,
-    or batch) and on its device."""
+    or batch, or a tree like the one saved) and on its device."""
     if step is None:
         step = latest_step(directory)
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {directory}")
+    if not _is_engine_state(like):
+        return _restore_tree(os.path.join(directory, f"ckpt_{step:08d}.npz"),
+                             like)
     like_gens = getattr(like, "generators", None)
     dev = (like_gens[0] if like_gens is not None else like.generator).device
     with np.load(os.path.join(directory, f"ckpt_{step:08d}.npz")) as data:
@@ -93,6 +122,24 @@ def restore_checkpoint(directory: str, like, step: int | None = None):
                 else {"generators": tuple(map(generator, saved))})
         return type(like)(theta=fields["theta"], t=int(data["t"]),
                           history=fields["history"], **gens)
+
+
+def _restore_tree(path: str, like):
+    """The tree saved at ``path``, in the structure of ``like``: a tensor
+    leaf comes back as a tensor of its dtype on its device, any other leaf
+    as a numpy array."""
+    with np.load(path) as data:
+        leaves = []
+        for key, want in tree.flatten_with_path(like):
+            if key not in data.files:
+                raise ValueError(f"checkpoint has no {key!r}")
+            arr = data[key]
+            if tuple(arr.shape) != tuple(np.shape(want)):
+                raise ValueError(f"checkpoint {key} {tuple(arr.shape)} does "
+                                 f"not match {tuple(np.shape(want))}")
+            leaves.append(torch.as_tensor(arr).to(want.device, want.dtype)
+                          if isinstance(want, torch.Tensor) else arr)
+    return tree.unflatten(tree.flatten(like)[1], leaves)
 
 
 def latest_step(directory: str) -> int | None:

@@ -1,4 +1,4 @@
-"""Carry a reference (JAX) engine state into the port.
+"""Carry a reference (JAX) engine state, or a served snapshot, into the port.
 
 `state_from_jax` turns the arrays of a reference engine state — given as
 numpy arrays keyed as `repro.checkpoint.save_checkpoint` names them, or as
@@ -13,6 +13,12 @@ the npz file it writes — into the port's state on ``device``:
 The JAX PRNG key is not carried: the two frameworks draw different numbers
 from the same key, so the port's noise generator is seeded from ``seed``
 (pass the run's ``RunSpec.seed``).
+
+`snapshot_from_jax` turns a reference serving snapshot
+(`repro.serve.Snapshot`, or a mapping of its fields) into the port's
+`repro_torch.serve.Snapshot` on ``device``: the same version, round and
+eps, and theta, w and w_bar as float32 tensors — so the reference's model
+can be published into the port's `ServeState` and served there.
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["state_from_jax"]
+__all__ = ["state_from_jax", "snapshot_from_jax"]
 
 
 def _nested(flat: dict[str, torch.Tensor]):
@@ -87,3 +93,30 @@ def state_from_jax(arrays: Mapping[str, np.ndarray] | str | os.PathLike,
                              f"{theta.shape}, got {history.shape}")
         history = tensor(history)
     return SimState(theta=tensor(theta), t=t, generator=gen, history=history)
+
+
+_SNAPSHOT_FIELDS = ("version", "round", "theta", "w", "w_bar", "eps_spent")
+
+
+def snapshot_from_jax(snapshot, device: str | torch.device = "cuda"):
+    """The port's Snapshot of a reference one (an object with the fields
+    version, round, theta, w, w_bar and eps_spent — arrays as anything
+    numpy converts — or a mapping of them), its tensors on ``device``."""
+    from repro_torch.serve.state import Snapshot
+    get = (snapshot.__getitem__ if isinstance(snapshot, Mapping)
+           else lambda f: getattr(snapshot, f))
+    fields = {f: get(f) for f in _SNAPSHOT_FIELDS}
+    dev = resolve_device(device)
+
+    def tensor(a) -> torch.Tensor:
+        return torch.as_tensor(np.array(a, np.float32), device=dev)
+
+    w = tensor(fields["w"])
+    if w.dim() != 2 or tuple(np.shape(fields["w_bar"])) != (w.shape[1],):
+        raise ValueError(f"w must be (m, n) and w_bar (n,), got "
+                         f"{tuple(w.shape)} and {np.shape(fields['w_bar'])}")
+    return Snapshot(version=int(fields["version"]),
+                    round=int(fields["round"]),
+                    theta=tensor(fields["theta"]), w=w,
+                    w_bar=tensor(fields["w_bar"]),
+                    eps_spent=float(fields["eps_spent"]))

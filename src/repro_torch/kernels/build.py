@@ -10,7 +10,9 @@ register and spill report (``-Xptxas -v``) is kept beside the library as
 ``<name>.log``.
 
 Nothing here runs at import time: the CPU tests import every module of the
-port on a machine with no ``nvcc``.
+port on a machine with no ``nvcc``. A module lock serialises builds, so two
+threads of one process that reach a kernel at first use (the serving
+layer's trainer and its caller) never compile into the same file.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "nvcc_path", "library_path",
@@ -29,6 +32,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# one build at a time in a process: the temporary outputs are named by pid
+_BUILD_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -55,6 +60,11 @@ def library_path(source: str) -> Path:
 def build(*sources: str) -> list[Path]:
     """Compile the given ``csrc/`` sources that are not built yet, one
     ``nvcc`` per source, all started together; returns the library paths."""
+    with _BUILD_LOCK:
+        return _build(sources)
+
+
+def _build(sources) -> list[Path]:
     outs = [library_path(s) for s in sources]
     todo = [(s, o) for s, o in zip(sources, outs) if not o.exists()]
     if todo:

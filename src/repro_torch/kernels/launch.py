@@ -10,6 +10,7 @@ memory its counter words.
 """
 from __future__ import annotations
 
+import threading
 from typing import Callable
 
 import torch
@@ -41,6 +42,7 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 _COUNTERS: dict[tuple[str, int, int], torch.Tensor] = {}
+_COUNTERS_LOCK = threading.Lock()
 
 
 def stream_counter(kernel: str, dev: torch.device, stream,
@@ -52,10 +54,13 @@ def stream_counter(kernel: str, dev: torch.device, stream,
     counters ready for the next (its source says how), so no call pays a
     memset. One array per stream, so concurrent calls on two streams never
     share one; calls on one stream run in order (and the caching allocator
-    hands a replaced array's memory only to later work on that stream)."""
+    hands a replaced array's memory only to later work on that stream).
+    Threads share the table under a lock, so two that reach a kernel at
+    once on one stream get one array."""
     key = (kernel, dev.index, stream.cuda_stream)
-    counter = _COUNTERS.get(key)
-    if counter is None or counter.numel() < size:
-        counter = _COUNTERS[key] = torch.zeros(size, dtype=torch.int32,
-                                               device=dev)
+    with _COUNTERS_LOCK:
+        counter = _COUNTERS.get(key)
+        if counter is None or counter.numel() < size:
+            counter = _COUNTERS[key] = torch.zeros(size, dtype=torch.int32,
+                                                   device=dev)
     return counter

@@ -13,9 +13,10 @@ which is why only the innermost seed axis is batched. Every run happens on
 Results persist through `repro_torch.sweep.store.SweepStore` (one JSONL
 record per point x seed); ``reuse=True`` loads any already-stored record
 with a matching resolved spec instead of re-running, so a figure
-regenerates from the store for free. (The reference's ``sweep.point``
-spans and ``sweep_point`` events come with the telemetry port, ROADMAP
-queue 1 item 3.)
+regenerates from the store for free. Under enabled ambient telemetry
+(`repro_torch.obs`) each point is a ``sweep.point`` span and a
+``sweep_point`` event, counted in ``sweep.points_ran`` or
+``sweep.points_loaded``.
 
 >>> import tempfile
 >>> from repro_torch.api import RunSpec
@@ -43,6 +44,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch import obs as obslib
 from repro_torch.api.exec_config import ExecConfig
 from repro_torch.api.runner import (RunResult, run, run_batch,
                                     seed_vectorizable)
@@ -213,6 +215,11 @@ def sweep(spec: SweepSpec, *, store: str | SweepStore | None = DEFAULT_STORE,
                 f"populate it (records also go stale when the base spec "
                 f"changes)")
 
+    # ambient telemetry (repro_torch.obs): a no-op unless the caller enabled
+    # it — each point gets a sweep.point span and a sweep_point event, and
+    # the runs inside _run_point pick up the same ambient Telemetry
+    tel = obslib.active()
+
     results: list[list[RunResult]] = []
     records: list[dict] = []
     needs_compaction = False
@@ -221,13 +228,17 @@ def sweep(spec: SweepSpec, *, store: str | SweepStore | None = DEFAULT_STORE,
     for point, cached in zip(points, cached_points):
         if cached is not None:
             loaded += 1
-            point_results = [RunResult.from_record(r["result"])
-                             for r in cached]
+            with tel.span("sweep.point", sweep=name, label=point.label(),
+                          source="loaded"):
+                point_results = [RunResult.from_record(r["result"])
+                                 for r in cached]
             point_records = cached
         else:
             ran += 1
-            point_results = _run_point(point, spec, warmup=warmup,
-                                       device=device)
+            with tel.span("sweep.point", sweep=name, label=point.label(),
+                          source="ran"):
+                point_results = _run_point(point, spec, warmup=warmup,
+                                           device=device)
             point_records = [
                 store_obj.make_record(
                     name, coords=point.coords, seed=s, engine=spec.engine,
@@ -244,6 +255,11 @@ def sweep(spec: SweepSpec, *, store: str | SweepStore | None = DEFAULT_STORE,
                 if any(k in existing_keys for k in fresh_keys):
                     needs_compaction = True
                 existing_keys.update(fresh_keys)
+        if tel.enabled:
+            source = "loaded" if cached is not None else "ran"
+            tel.metrics.counter(f"sweep.points_{source}").inc()
+            tel.emit("sweep_point", sweep=name, label=point.label(),
+                     seeds=list(spec.seeds), source=source)
         if verbose:
             accs = [r.accuracy for r in point_results]
             print(f"[sweep {name}] {point.label()}: "

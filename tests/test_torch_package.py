@@ -231,3 +231,26 @@ def test_package_exports_the_batch_and_the_sweep():
         assert name in api.__all__ and hasattr(japi, name)
         assert getattr(api, name) is getattr(runner, name)
         assert getattr(repro_torch, name) is getattr(runner, name)
+
+
+def test_package_exports_serving_and_telemetry():
+    """`repro_torch.serve` carries the names `repro.serve` does;
+    `repro_torch.obs` those of `repro.obs` less the HLO cost loop's, which
+    raise naming the ROADMAP; the checkpoint package adds the async
+    writer."""
+    import repro.checkpoint as jcheckpoint
+    import repro.obs as jobs
+    import repro.serve as jserve
+    import repro_torch.checkpoint as checkpoint
+    import repro_torch.obs as obs
+    import repro_torch.serve as serve
+    cost = ("CostModel", "ChunkCost", "analyze_chunk", "calibrate")
+    assert serve.__all__ == jserve.__all__
+    assert all(hasattr(serve, name) for name in serve.__all__)
+    assert obs.__all__ == [n for n in jobs.__all__ if n not in cost]
+    assert all(hasattr(obs, name) for name in obs.__all__)
+    for name in cost:
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+            getattr(obs, name)
+    assert checkpoint.__all__ == jcheckpoint.__all__
+    assert ExecConfig().obs is None

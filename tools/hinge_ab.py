@@ -63,11 +63,17 @@ def run(root: Path, child: str = CHILD) -> dict:
     return json.loads(line[len("RESULT "):])
 
 
+def _show_times(res: dict, what: str) -> str:
+    return "; ".join(f"{what}={k}: {r['ms'] * 1e3:.2f} us device, "
+                     f"{r['call_ms'] * 1e3:.2f} us per call"
+                     for k, r in res.items())
+
+
 def in_turns(argv: list[str], child: str = CHILD, what: str = "B",
-             doc: str = __doc__) -> int:
+             doc: str = __doc__, show=_show_times) -> int:
     """Run ``child`` in OTHER_ROOT (``argv[1]``) and this checkout in turns
-    OTHER, THIS, THIS, OTHER; print each run and one JSON line of every
-    sample with the card's name and power limit."""
+    OTHER, THIS, THIS, OTHER; print each run (``show(result, what)``) and
+    one JSON line of every sample with the card's name and power limit."""
     if len(argv) != 2:
         raise SystemExit(doc)
     other = Path(argv[1]).resolve()
@@ -80,10 +86,7 @@ def in_turns(argv: list[str], child: str = CHILD, what: str = "B",
                         ("other", other)):
         res = run(root, child)
         samples[label].append(res)
-        print(f"{label} ({root}): " + "; ".join(
-            f"{what}={k}: {r['ms'] * 1e3:.2f} us device, "
-            f"{r['call_ms'] * 1e3:.2f} us per call" for k, r in res.items()),
-            flush=True)
+        print(f"{label} ({root}): {show(res, what)}", flush=True)
     print(smi)
     print(json.dumps({"card": smi, "other": str(other), "this": str(THIS),
                       "samples": samples}))
