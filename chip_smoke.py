@@ -143,6 +143,25 @@ Phases (any failure raises, and the script exits non-zero):
                run_end and ``launch.obs report`` renders it; the profiler's
                Chrome trace holds the round kernels' device events. Then
                rounds/s with telemetry off and on (no profiler), in turns.
+16. runner   — the rest of ``run``'s surface at the paper's width, each
+               held to phase 4's run: custom mode (``step_fn=`` one fused
+               round of the main path's chunk program a step, the stream's
+               rounds as ``batches``, 1,562 steps: final primal and the
+               history's losses bit for bit, 1,562 sparse launches of each
+               round kernel); ``ExecConfig(log_path=...)`` (1,563 lines,
+               every row the RunResult's trajectories, the run bit for bit;
+               rounds/s with and without the log in turns); 64 rounds via
+               the legacy kwargs (one DeprecationWarning, bit for bit the
+               ``exec=`` run); ``Telemetry(events, cost=True)`` (bit for
+               bit; run_start, chunk x 7, chunk_cost, run_end; the
+               report's cost line; the calibrated peaks, one round's op
+               count — equal on the card and on the CPU, op by op — split
+               into the round kernels' and the torch ops' share, predicted
+               and measured chunk seconds, the error ratio); then
+               ``python -m repro_torch.launch.train --stream social_sparse``
+               at the paper's width (equal to ``run`` of its spec) and
+               ``launch.dryrun``'s count of a 256-round chunk and the peak
+               device memory of its counted round.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line (time,
 bound, plain-version time and launches of every kernel), and last
@@ -468,26 +487,12 @@ def _device_ms(fn, reps: int = 20, repeats: int = 5) -> float:
 
 def _work(name: str, m: int, n: int, nnz: int | None = None,
           seeds: int = 1) -> tuple[int, int]:
-    """(bytes, flops) the function needs at the main path's flags: each
-    input read once, each output written once. For ``round_update`` the
-    mix is the dense (m, m) A (m^2 floats in, 2 m^2 n flops) unless ``nnz``
-    is given: then A's CSR form with nnz non-zeros (m + 1 + 2 nnz words
-    in, 2 nnz n flops) — the ring's 3 m at the main path. ``seeds`` > 1:
-    a batched launch, every per-seed array S times, the mix and diag once
-    (the seeds share them)."""
-    mn, S = m * n, seeds
-    if name == "round_stats":      # theta, x in; dot, xsq, nnz, wbdot, wsum
-        return S * 4 * (2 * mn + 4 * m + n), S * 12 * mn
-    if name.startswith("round_update"):   # A, diag shared; theta, delta, x,
-        a_words, mix_flops = ((m * m, 2 * m * m * n) if nnz is None  # coeff,
-                              else (m + 1 + 2 * nnz, 2 * nnz * n))   # alive
-        return (4 * (a_words + m + S * (3 * mn + 2 * m + 2 * mn)),   # in;
-                S * (mix_flops + 8 * mn))       # next, tilde out per seed
-    if name == "pdomd_update":     # four (rows, 128) in; w, theta_new out
-        return 4 * 6 * mn, 10 * mn
-    if name == "hinge_grad":       # x, y, w in; loss, margin, g out
-        return 4 * (mn + 3 * m + 2 * n), 4 * mn
-    return 4 * (3 * mn + 2 * m + mn), 3 * mn   # dual_step
+    """(bytes, flops) of one launch: the package's one count of a kernel's
+    work (`repro_torch.kernels.work.work`, which the cost loop reads too):
+    each input read once, each output written once, at the main path's
+    flags; ``nnz`` selects round_update's CSR form, ``seeds`` a batch."""
+    from repro_torch.kernels.work import work
+    return work(name, m, n, nnz, seeds)
 
 
 def _rotate(fns):
@@ -1993,6 +1998,272 @@ def telemetry_phase(card: str) -> dict:
             "profiled_rate": on.rounds_per_sec}
 
 
+RUNNER_CHUNK = 256
+RUNNER_TURNS = ("plain", "log", "log", "plain", "plain", "log")
+SHIM_ROUNDS = 64
+
+
+def _custom_mode(spec, main, card: str) -> dict:
+    """Phase 16a: ``run(spec, step_fn=, state=, batches=, horizon=)`` with
+    one fused round of the main path's chunk program a step, the stream's
+    rounds as the batches; equal to phase 4's run bit for bit."""
+    import numpy as np
+    from repro_torch import run
+    from repro_torch.api.runner import (_final_primal, _stream_chunk,
+                                        make_chunk_program)
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import round_fused as rf
+    dev = resolve_device(DEVICE)
+    T = spec.horizon
+    chunk_fn, init_fn = make_chunk_program(spec, "sim", dev)
+    stream = spec.resolve_stream(device=dev)
+
+    def step_fn(state, batch):
+        state, out = chunk_fn(state, *batch)
+        # the means numpy takes of phase 4's host trajectories, so the
+        # history holds to them bit for bit (one host read a step)
+        return state, {"loss": out.loss.cpu().numpy().mean(),
+                       "accuracy": out.correct.cpu().numpy().mean()}
+
+    def rounds():
+        for t in range(T):
+            yield _stream_chunk(stream, t, t + 1, dev)
+
+    rf.reset_launches()
+    res = run(spec, step_fn=step_fn, state=init_fn(spec.seed),
+              batches=rounds(), horizon=T, device=DEVICE)
+    launches = _launches()
+    _require_path(launches, "sparse", T, "custom mode")
+    final_w = _final_primal(spec, "sim", res.final_state)
+    require(np.array_equal(final_w, main.final_w),
+            "custom mode: final primal differs from phase 4's final_w")
+    losses = [h["loss"] for h in res.history]
+    require(losses == [float(row.mean()) for row in main.loss],
+            "custom mode: history's losses differ from phase 4's row means")
+    require(np.array_equal(res.eps_ledger, main.eps_ledger),
+            "custom mode: eps ledger differs")
+    log(f"runner surface, custom mode: {T} steps of one fused round, "
+        f"final primal and {len(losses)} losses equal to phase 4 bit for "
+        f"bit; {res.rounds_per_sec:.1f} rounds/s (a host read every step; "
+        f"phase 4 {main.rounds_per_sec:.1f}); launches {launches} | {card}")
+    return {"launches": launches, "rate": res.rounds_per_sec}
+
+
+def _csv_log(spec, main, card: str) -> dict:
+    """Phase 16b: the main path with ``ExecConfig(log_path=...)`` — one
+    row a round, each the RunResult's trajectories as ``str(float)``
+    writes them, the result equal to phase 4's — then rounds/s with and
+    without the log, in turns."""
+    import statistics as st
+    import tempfile
+    from repro_torch import ExecConfig, run
+    T = spec.horizon
+    cfg = ExecConfig(chunk_rounds=RUNNER_CHUNK, compute_regret=True,
+                     warmup=False)
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / "run.csv")
+        res = run(spec, exec=cfg.replace(log_path=path), device=DEVICE)
+        lines = Path(path).read_text().strip().splitlines()
+        _same_run(res, main, "CSV-logged run vs phase 4")
+        require(len(lines) == T + 1, f"CSV log: {len(lines)} lines")
+        require(lines[0] == "step,accuracy,eps,loss,sparsity,w_bar_loss",
+                f"CSV log: header {lines[0]!r}")
+        want = [",".join((str(t), str(float(res.correct[t].mean())),
+                          str(float(res.eps_ledger[t])),
+                          str(float(res.loss[t].mean())),
+                          str(float(res.sparsity[t])),
+                          str(float(res.w_bar_loss[t])))) for t in range(T)]
+        require(lines[1:] == want, "CSV log: rows differ from the "
+                "RunResult's trajectories")
+        log(f"runner surface, CSV log: {len(lines)} lines, every row the "
+            f"RunResult's trajectories; the run equal to phase 4 bit for "
+            f"bit; {res.rounds_per_sec:.1f} rounds/s | {card}")
+        rates = {"plain": [], "log": []}
+        turn = cfg.replace(compute_regret=False)
+        for i, kind in enumerate(RUNNER_TURNS):
+            c = turn.replace(log_path=str(Path(d) / f"t{i}.csv")) \
+                if kind == "log" else turn
+            rates[kind].append(run(spec, exec=c,
+                                   device=DEVICE).rounds_per_sec)
+    ratio = st.median(rates["log"]) / st.median(rates["plain"])
+    log(f"runner surface, CSV log: rounds/s over {T} rounds in turns "
+        f"{RUNNER_TURNS}: {json.dumps(rates)}; median log / plain {ratio}"
+        f" | {card}")
+    return {"rates": rates}
+
+
+def _shim(spec, card: str) -> None:
+    """Phase 16c: 64 rounds through the legacy kwargs — one
+    DeprecationWarning — equal to the ``exec=`` run bit for bit."""
+    import warnings
+    from repro_torch import ExecConfig, run
+    from repro_torch.api import exec_config
+    short = spec.replace(horizon=SHIM_ROUNDS)
+    via_exec = run(short, exec=ExecConfig(chunk_rounds=16, warmup=False,
+                                          compute_regret=False),
+                   device=DEVICE)
+    exec_config._warned_legacy = False
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        via_legacy = run(short, chunk_rounds=16, warmup=False,
+                         compute_regret=False, device=DEVICE)
+        run(short, chunk_rounds=16, warmup=False, compute_regret=False,
+            device=DEVICE)
+    dep = [w for w in caught if issubclass(w.category, DeprecationWarning)]
+    require(len(dep) == 1 and "ExecConfig" in str(dep[0].message),
+            f"shim: {len(dep)} DeprecationWarnings")
+    _same_run(via_legacy, via_exec, "legacy kwargs vs exec=")
+    log(f"runner surface, legacy shim: {SHIM_ROUNDS} rounds via "
+        f"chunk_rounds=/warmup=/compute_regret= kwargs equal to the exec= "
+        f"run bit for bit; one DeprecationWarning over two calls | {card}")
+
+
+def _count_differences(card_cost, cpu_cost) -> list:
+    """The ops whose rows differ between two counts, by name."""
+    names = sorted(set(card_cost.ops) | set(cpu_cost.ops))
+    return [(n, card_cost.ops.get(n), cpu_cost.ops.get(n)) for n in names
+            if card_cost.ops.get(n) != cpu_cost.ops.get(n)]
+
+
+def _cost_loop(spec, main, card: str) -> dict:
+    """Phase 16d: the main path with ``Telemetry(events, cost=True)``:
+    equal to phase 4 bit for bit, events run_start, chunk x 7, chunk_cost,
+    run_end, ``launch.obs report`` renders the cost line; one round's op
+    count on the card equal to the CPU's (plain versions), op by op."""
+    import contextlib
+    import io
+    import tempfile
+    import torch
+    from repro_torch import ExecConfig, run
+    from repro_torch.api.runner import (_copy_state, _stream_chunk,
+                                        make_chunk_program)
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import round_fused as rf
+    from repro_torch.launch import obs as obs_cli
+    from repro_torch.launch.op_cost import count
+    from repro_torch.obs import Telemetry, read_events
+    T = spec.horizon
+    chunks = -(-T // RUNNER_CHUNK)
+    cfg = ExecConfig(chunk_rounds=RUNNER_CHUNK, compute_regret=True,
+                     warmup=False)
+    with tempfile.TemporaryDirectory() as d:
+        events = str(Path(d) / "events.jsonl")
+        tel = Telemetry(events=events, cost=True)
+        rf.reset_launches()
+        res = run(spec, exec=cfg.replace(obs=tel), device=DEVICE)
+        launches = _launches()
+        tel.close()
+        kinds = [e["event"] for e in read_events(events)]
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            code = obs_cli.main(["report", "--events", events])
+    report = text.getvalue()
+    # the counting round is one more launch of each kernel
+    _require_path(launches, "sparse", T + 1, "cost-loop run")
+    _same_run(res, main, "cost-loop run vs phase 4")
+    require(kinds == ["run_start"] + ["chunk"] * chunks
+            + ["chunk_cost", "run_end"], f"cost loop: events {kinds}")
+    require(code == 0 and "cost: predicted" in report,
+            f"cost loop: report {report!r} (exit {code})")
+    cost = res.metrics["obs"]["cost"]
+    model = cost["model"]          # the run's calibration (obs.calibrate)
+    log(f"runner surface, cost loop: {T} rounds with Telemetry(cost=True) "
+        f"equal to phase 4 bit for bit; events {kinds}; launches "
+        f"{launches} | {card}")
+    log(f"cost loop: calibrated peaks {model['peak_bandwidth'] / 1e12} "
+        f"TB/s (saxpy; data sheet 3.35) and {model['peak_flops'] / 1e12} "
+        f"TFLOP/s (512^2 matmul; data sheet 67 fp32) | {card}")
+    log(f"cost loop: predicted {cost['predicted_s']} s a chunk of "
+        f"{RUNNER_CHUNK} rounds, measured mean {cost['measured_mean_s']} s "
+        f"over {cost['measured_chunks']} chunks; error_ratio "
+        f"{cost['error_ratio']} | {card}")
+    log("cost loop: launch.obs report:\n" + report.rstrip())
+
+    # one round's count on the card and on the CPU (plain versions)
+    counts = {}
+    for where in (DEVICE, "cpu"):
+        dev = resolve_device(where)
+        chunk_fn, init_fn = make_chunk_program(spec, "sim", dev)
+        xs, ys = _stream_chunk(spec.resolve_stream(device=dev), 0, 1, dev)
+        _, counts[where] = count(chunk_fn, _copy_state(init_fn(spec.seed)),
+                                 xs, ys)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    diff = _count_differences(counts[DEVICE], counts["cpu"])
+    require(not diff, f"cost loop: one round counts differently on the "
+            f"card and the CPU, op by op (name, card, cpu): {diff}")
+    one = counts[DEVICE]
+    kf, kb = one.share("kernel.")
+    af, ab = one.share("aten.")
+    top = [(name, row["calls"], row["bytes"], row["flops"])
+           for name, row in one.top(10)]
+    log(f"cost loop: one round counts {one.hbm_bytes} bytes, {one.flops} "
+        f"flops on the card and on the CPU alike: round kernels {kb} bytes "
+        f"{kf} flops, torch ops {ab} bytes {af} flops; top ten (name, "
+        f"calls, bytes, flops): {json.dumps(top)}")
+    return {"launches": launches, "cost": cost,
+            "peaks": model, "round_bytes": one.hbm_bytes,
+            "round_flops": one.flops, "kernel_bytes": kb,
+            "torch_bytes": ab}
+
+
+def _clis(card: str) -> dict:
+    """Phase 16e: ``launch.train --stream`` at the paper's width on the
+    card (its result equal to `run` of the same spec) and
+    ``launch.dryrun``'s count of the main path's chunk."""
+    import contextlib
+    import io
+    from repro_torch import ExecConfig, run
+    from repro_torch.kernels import round_fused as rf
+    from repro_torch.launch import dryrun, train
+    from repro_torch.launch.steps import TrainRecipe
+    argv = ["--stream", "social_sparse", "--nodes", str(MAIN_M), "--dim",
+            str(MAIN_N), "--steps", str(PAPER_T), "--engine", "sim",
+            "--device", DEVICE]
+    text = io.StringIO()
+    rf.reset_launches()
+    with contextlib.redirect_stdout(text):
+        got = train.main(argv)["result"]
+    launches = _launches()
+    line = text.getvalue().strip()
+    require(line.startswith(f"stream=social_sparse engine=sim nodes="
+                            f"{MAIN_M} dim={MAIN_N} rounds={PAPER_T}: acc="),
+            f"train CLI printed {line!r}")
+    # ExecConfig's default warm-up round is one more launch of each kernel
+    _require_path(launches, "sparse", PAPER_T + 1, "train CLI")
+    spec = TrainRecipe().to_runspec(MAIN_M).replace(
+        dim=MAIN_N, horizon=PAPER_T, seed=0, stream="social_sparse",
+        stream_options={}, backend="cuda")
+    _same_run(got, run(spec, exec=ExecConfig(), device=DEVICE),
+              "train CLI vs run")
+    log(f"runner surface, train CLI: python -m repro_torch.launch.train "
+        f"{' '.join(argv)}: {line!r}; equal to run() of its spec bit for "
+        f"bit; launches {launches} | {card}")
+    rec = dryrun.dryrun_stream("social_sparse", nodes=MAIN_M, dim=MAIN_N,
+                               chunk_rounds=RUNNER_CHUNK, save=False,
+                               verbose=False, device=DEVICE)
+    log(f"runner surface, dryrun: social_sparse m={MAIN_M} n={MAIN_N} "
+        f"chunk={RUNNER_CHUNK}: {rec['hlo_bytes']} bytes, {rec['hlo_flops']}"
+        f" flops, predicted {rec['predicted_chunk_s']} s a chunk; peak "
+        f"device memory over the counted round {rec['memory_peak_bytes']} "
+        f"bytes ({rec['memory_round_bytes']} above the state and data "
+        f"before it; {rec['compile_s']} s to count) | {card}")
+    return {"launches": launches, "dryrun": rec}
+
+
+def runner_phase(main, card: str) -> dict:
+    """Phase 16: the rest of the runner's surface at the paper's width —
+    custom mode, the per-round CSV log, the legacy-kwarg shim, the cost
+    loop and the stream CLIs — each held to phase 4's run."""
+    spec = paper_spec()
+    out = {"custom": _custom_mode(spec, main, card),
+           "csv": _csv_log(spec, main, card)}
+    _shim(spec, card)
+    out["cost"] = _cost_loop(spec, main, card)
+    out["clis"] = _clis(card)
+    return out
+
+
 PATHS = {"round_stats": "main, serve", "round_update": "main, serve",
          "dual_step": "hybrid (phase 6, complete, time_varying, faults)",
          "pdomd_update": "ops", "hinge_grad": "ops"}
@@ -2019,6 +2290,7 @@ def main() -> int:
     sweep_phase(card)
     serve = serve_phase(card)
     telemetry = telemetry_phase(card)
+    runner = runner_phase(main_res, card)
     hybrid = {"hybrid": launches["dual_step"],
               **{name: run["launches"]["dual_step"]
                  for name, run in topologies.items()
@@ -2046,6 +2318,9 @@ def main() -> int:
         kernels[name]["serve_launches"] = serve["launches"][name]
         kernels[name]["launches"] += serve["launches"][name]
         kernels[name]["obs_launches"] = telemetry["launches"][name]
+        kernels[name]["runner_launches"] = {
+            part: runner[part]["launches"][name]
+            for part in ("custom", "cost", "clis")}
     kernels["round_update"]["batch_sparse_launches"] = batch["launches"][
         "round_update_sparse"]
     kernels["round_update"]["sparse_launches"] += serve["launches"][

@@ -30,19 +30,29 @@ and `repro_torch.sweep` runs grids of them into a results store:
 
     batch = run_batch(spec, seeds=(0, 1, 2))    # [RunResult] * 3
 
+`run` also drives a caller's own loop (custom mode: ``step_fn(state,
+batch)`` for ``horizon`` steps, ``RunResult.history``), writes one CSV row
+a round with ``ExecConfig(log_path=...)`` (`repro_torch.metrics`), and with
+``Telemetry(cost=True)`` predicts each chunk's time from an op count and
+records the measured time beside it (`repro_torch.obs.cost`).
+
 `repro_torch.serve` answers predictions from published snapshots while a
 background thread keeps training (`ServeService`, `BurstyReplay`), and
 `repro_torch.obs` records spans, metrics, run events and profiler traces
 (``python -m repro_torch.launch.obs report`` renders a stream).
+``python -m repro_torch.launch.train --stream ...`` and ``python -m
+repro_torch.launch.dryrun --stream ...`` run and count the paper's
+workload from the command line.
 """
 from repro_torch.api import (FAULTS, ExecConfig, FaultSpec, GossipDP,
                              GossipState, RunResult, RunSpec, degradation,
                              gossip_mix_tree, ops, per_node_clip,
                              rounds_to_recover, run, run_batch,
                              seed_vectorizable, wrap_mixer)
+from repro_torch import metrics
 
 __all__ = ["ExecConfig", "RunResult", "RunSpec", "run", "run_batch",
            "seed_vectorizable", "GossipDP",
            "GossipState", "gossip_mix_tree", "per_node_clip", "ops",
            "FAULTS", "FaultSpec", "wrap_mixer", "degradation",
-           "rounds_to_recover"]
+           "rounds_to_recover", "metrics"]

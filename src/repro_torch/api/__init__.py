@@ -8,7 +8,9 @@ BACKENDS registry that says how the round body executes ("reference" torch
 ops or the fused "cuda" kernels), and the FAULTS registry of fault
 scenarios (`repro_torch.faults`). `run` drives one seed, `run_batch` S
 seeds of one configuration in step (`seed_vectorizable` says when they can
-share one chunk program).
+share one chunk program). `run` also drives any ``step_fn(state, batch)``
+loop (custom mode), and execution knobs travel as one `ExecConfig` (the
+legacy keyword arguments go through `exec_config.resolve_exec`).
 
 >>> from repro_torch.api import MIXERS, MECHANISMS, LOCAL_RULES, CLIPPERS
 >>> MIXERS.names()    # doctest: +NORMALIZE_WHITESPACE
@@ -72,4 +74,16 @@ __all__ = [
     "ReferenceBackend", "CudaBackend",
     "GossipDP", "GossipState", "gossip_mix_tree", "per_node_clip", "ops",
     "FAULTS", "FaultSpec", "wrap_mixer", "degradation", "rounds_to_recover",
+    "SweepSpec", "SweepResult", "sweep",
 ]
+
+_SWEEP_EXPORTS = ("SweepSpec", "SweepResult", "sweep")
+
+
+def __getattr__(name):
+    # repro_torch.sweep imports the api, so its names load on first use
+    if name in _SWEEP_EXPORTS:
+        import repro_torch.sweep as _sweep
+        return getattr(_sweep, name)
+    raise AttributeError(f"module 'repro_torch.api' has no attribute "
+                         f"{name!r}")

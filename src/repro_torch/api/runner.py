@@ -51,18 +51,19 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, Iterator, NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch import obs as obslib
-from repro_torch.api.exec_config import ExecConfig
+from repro_torch.api.exec_config import ExecConfig, resolve_exec
 from repro_torch.api.spec import RunSpec
 from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.core import tree
 from repro_torch.core.privacy import PrivacyAccountant
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.metrics import CSVLogger, MetricTracker
 
 __all__ = ["run", "run_batch", "seed_vectorizable", "RunResult",
            "BatchState", "make_chunk_program", "make_batch_chunk_program",
@@ -141,7 +142,8 @@ class RunResult:
 
     Trajectories are per round, covering [start_round, rounds), as numpy
     arrays. ``eps_ledger[t]`` is the cumulative privacy guarantee after
-    round start_round + t + 1.
+    round start_round + t + 1. Custom ``step_fn`` runs fill ``history``
+    (one dict of float metrics a step) instead.
     """
 
     engine: str
@@ -163,6 +165,7 @@ class RunResult:
     accuracy: float | None = None         # mean correctness, last 20%
     final_w: np.ndarray | None = None     # (m, n) final primal parameters
     final_state: Any = None               # engine state (checkpointable)
+    history: list | None = None           # custom-mode per-step metrics
     metrics: dict = dataclasses.field(default_factory=dict)
 
     def accuracy_curve(self, window: int = 50) -> np.ndarray:
@@ -207,6 +210,7 @@ class RunResult:
             "accuracy": self.accuracy,
             "privacy": dict(self.privacy),
             "metrics": dict(self.metrics),
+            "history": self.history,
         }
         for f in self._ARRAY_FIELDS:
             v = getattr(self, f)
@@ -226,6 +230,7 @@ class RunResult:
                                   "stream", "accuracy")}
         kw["privacy"] = dict(rec.get("privacy") or {})
         kw["metrics"] = dict(rec.get("metrics") or {})
+        kw["history"] = rec.get("history")
         for f in cls._ARRAY_FIELDS:
             v = rec.get(f)
             kw[f] = None if v is None else _decode(v, torch.device("cpu"))
@@ -524,17 +529,35 @@ def _drive(cfg: ExecConfig, chunk_fn: Callable, chunk: Callable, state,
 
     The loop synchronises with the card only at its end, unless something
     reads a chunk boundary: ``on_chunk(b, state, accountant)`` (a truthy
-    return stops the loop there) or an enabled ``tel``, whose ``<kind>.chunk``
-    span times each chunk to its end. Telemetry only observes: spans,
-    metrics and events never touch the state."""
+    return stops the loop there), an enabled ``tel``, whose ``<kind>.chunk``
+    span times each chunk to its end, or ``cfg.log_path``, whose per-round
+    rows read each chunk's outputs to the host. Telemetry only observes:
+    spans, metrics and events never touch the state.
+
+    With ``tel.cost_enabled`` one round of the first chunk is counted
+    (`obs.analyze_chunk`) on a copy of the state and its generators before
+    the timed loop, scaled by the first chunk's rounds, and every chunk's
+    measured time is recorded beside the prediction, in the ``ChunkCost``
+    returned last (None with the cost loop off)."""
     bounds = _boundaries(start, T, cfg.chunk_rounds, cfg.checkpoint_every)
+    cost_on = tel.cost_enabled and len(bounds) > 1
     first_chunk = None
-    if cfg.warmup and len(bounds) > 1:
+    if (cfg.warmup or cost_on) and len(bounds) > 1:
+        # made once and reused by the loop: the cost count adds no draw
         first_chunk = chunk(bounds[0], bounds[1])
+    if cfg.warmup and first_chunk is not None:
         with tel.span(f"{kind}.compile", run_id=run_id, **span_args):
             chunk_fn(_copy_state(state), first_chunk[0][:1],
                      first_chunk[1][:1])
             synchronize(dev)
+    chunk_cost = None
+    if cost_on:
+        chunk_cost = obslib.analyze_chunk(
+            chunk_fn, _copy_state(state), first_chunk[0][:1],
+            first_chunk[1][:1], model=tel.cost_model,
+            rounds=bounds[1] - bounds[0])
+        synchronize(dev)
+    logger = CSVLogger(cfg.log_path) if cfg.log_path else None
 
     sync_chunks = on_chunk is not None or tel.enabled
     seeds = span_args.get("seeds")
@@ -566,6 +589,8 @@ def _drive(cfg: ExecConfig, chunk_fn: Callable, chunk: Callable, state,
                 tel.metrics.counter(f"{kind}.rounds").inc(b - a)
                 tel.metrics.histogram(f"{kind}.chunk_seconds").observe(secs)
                 tel.metrics.gauge(f"{kind}.eps_total").set(eps_now)
+                if chunk_cost is not None:
+                    chunk_cost.record(secs)
                 tel.emit("chunk", run_id=run_id, round_start=a, round_end=b,
                          seconds=secs,
                          rounds_per_sec=((b - a) / secs if secs > 0
@@ -575,6 +600,8 @@ def _drive(cfg: ExecConfig, chunk_fn: Callable, chunk: Callable, state,
             if cfg.compute_regret:
                 xs_all.append(xs)
                 ys_all.append(ys)
+            if logger is not None:
+                _log_rounds(logger, out, a, b, accountant)
             if (cfg.checkpoint_every and cfg.checkpoint_dir
                     and b % cfg.checkpoint_every == 0):
                 with tel.span(f"{kind}.checkpoint", step=b):
@@ -584,7 +611,39 @@ def _drive(cfg: ExecConfig, chunk_fn: Callable, chunk: Callable, state,
                 break
         synchronize(dev)
         wall = time.perf_counter() - t0
-    return state, outs, xs_all, ys_all, wall, done_to
+    if logger is not None:
+        logger.close()
+    return state, outs, xs_all, ys_all, wall, done_to, chunk_cost
+
+
+def _log_rounds(logger: CSVLogger, out, a: int, b: int,
+                accountant: PrivacyAccountant) -> None:
+    """The reference's per-round CSV rows of rounds [a, b): the node-mean
+    loss, w_bar's loss, sparsity, accuracy and the eps after the round,
+    from the chunk's outputs read to the host once."""
+    loss, wb_loss, sparsity, correct = (
+        getattr(out, f).cpu().numpy()
+        for f in ("loss", "w_bar_loss", "sparsity", "correct"))
+    for i, t in enumerate(range(a, b)):
+        logger.log(t, {
+            "loss": float(loss[i].mean()),
+            "w_bar_loss": float(wb_loss[i]),
+            "sparsity": float(sparsity[i]),
+            "accuracy": float(correct[i].mean()),
+            "eps": accountant.guarantee_at(t + 1),
+        })
+
+
+def _cost_info(obs_info: dict, chunk_cost, tel, run_id) -> None:
+    """The cost loop's record: ``metrics["obs"]["cost"]`` and the
+    ``chunk_cost`` event, with the reference's keys."""
+    if chunk_cost is None:
+        return
+    cs = chunk_cost.summary()
+    obs_info["cost"] = cs
+    tel.emit("chunk_cost", run_id=run_id,
+             **{k: cs[k] for k in ("predicted_s", "measured_mean_s",
+                                   "error_ratio", "flops", "hbm_bytes")})
 
 
 def _gather(outs: list, field: str) -> np.ndarray | None:
@@ -636,32 +695,38 @@ def _connectivity(fault_mixer, T: int, start: int, dev: torch.device):
     return fault_mixer.connectivity(T, dev)[start:]
 
 
-def _exec_config(exec: ExecConfig | None, caller: str) -> ExecConfig:
-    cfg = exec if exec is not None else ExecConfig()
-    if not isinstance(cfg, ExecConfig):
-        raise TypeError(f"{caller}() exec= expects an ExecConfig, got "
-                        f"{type(cfg).__name__}")
-    return cfg
-
-
 def _stream_name(spec: RunSpec, stream) -> str:
     return (spec.stream if isinstance(spec.stream, str)
             else type(stream).__name__)
 
 
-def run(spec: RunSpec, engine: str = "sim", *,
+def run(spec: RunSpec | None, engine: str = "sim", *,
         exec: ExecConfig | None = None, horizon: int | None = None,
-        on_chunk: Callable | None = None,
-        device: str | torch.device = "cuda") -> RunResult:
+        on_chunk: Callable | None = None, step_fn: Callable | None = None,
+        state: Any = None, batches: Iterator | None = None,
+        device: str | torch.device = "cuda", **legacy: Any) -> RunResult:
     """Drive one run end to end on ``engine`` ("sim" or "dist") and return
     a RunResult.
 
-    ``exec=ExecConfig(...)`` carries the execution knobs. ``horizon`` cuts
-    the run short of ``spec.horizon``. ``device`` defaults to CUDA and
-    raises without it; pass ``device="cpu"`` for the plain PyTorch path.
-    ``checkpoint_every`` saves the engine state every N rounds into
-    ``checkpoint_dir``; ``resume=True`` restores the latest checkpoint and
-    continues bit-identically.
+    ``exec=ExecConfig(...)`` carries the execution knobs (see
+    `repro_torch.api.exec_config` for every field and the legacy-kwarg
+    migration table); the old keyword arguments (``chunk_rounds=``,
+    ``log_path=``, ...) still work through ``**legacy`` with a
+    once-per-process DeprecationWarning. ``horizon`` cuts the run short of
+    ``spec.horizon``. ``device`` defaults to CUDA and raises without it;
+    pass ``device="cpu"`` for the plain PyTorch path. ``checkpoint_every``
+    saves the engine state every N rounds into ``checkpoint_dir``;
+    ``resume=True`` restores the latest checkpoint and continues
+    bit-identically. ``log_path`` writes one CSV row a round (node-mean
+    loss, w_bar_loss, sparsity, accuracy, eps), reading each chunk's
+    outputs to the host.
+
+    Custom mode (``step_fn=``): drives ``state, metrics = step_fn(state,
+    next(batches))`` for ``horizon`` steps with the same tracking, CSV
+    logging (``log_path``), eps accounting (when a spec is given),
+    checkpoints of the state and ``print_every`` progress lines, and
+    returns the per-step metrics as ``history``; the state and the step
+    are the caller's, on whatever device they live.
 
     ``on_chunk(round_end, state, accountant)`` fires after every chunk with
     the ABSOLUTE round it ended on, the engine state at that round (the
@@ -680,10 +745,21 @@ def run(spec: RunSpec, engine: str = "sim", *,
     ``run.eps_total`` (and ``faults.mean_connectivity``) go into its
     metrics, ``run_start``/``chunk``/``checkpoint``/``run_end`` into its
     event stream, the chunk loop runs under its profiler, and
-    ``metrics["obs"]`` holds the run id. A run with telemetry on equals one
-    with it off bit for bit.
+    ``metrics["obs"]`` holds the run id. With ``Telemetry(cost=True)`` one
+    round of the chunk program is counted before the timed loop and the
+    predicted-vs-measured chunk cost lands in ``metrics["obs"]["cost"]``
+    and a ``chunk_cost`` event. A run with telemetry on equals one with it
+    off bit for bit.
     """
-    cfg = _exec_config(exec, "run")
+    cfg = resolve_exec(exec, legacy, caller="run")
+    if step_fn is not None:
+        return _run_custom(spec, engine, step_fn=step_fn, state=state,
+                           batches=batches, horizon=horizon,
+                           log_path=cfg.log_path, print_every=cfg.print_every,
+                           checkpoint_every=cfg.checkpoint_every,
+                           checkpoint_dir=cfg.checkpoint_dir)
+    if spec is None:
+        raise ValueError("run() needs a RunSpec (or step_fn= for custom mode)")
     dev = resolve_device(device)
     stream = spec.resolve_stream(device=dev)
     T = horizon or spec.horizon or stream.rounds
@@ -704,7 +780,7 @@ def run(spec: RunSpec, engine: str = "sim", *,
         tel.emit("run_start", run_id=run_id, kind="run", engine=engine,
                  stream=_stream_name(spec, stream), nodes=spec.nodes,
                  dim=spec.dim, horizon=T, start_round=start)
-    state, outs, xs_all, ys_all, wall, T = _drive(
+    state, outs, xs_all, ys_all, wall, T, chunk_cost = _drive(
         cfg, chunk_fn, lambda a, b: _stream_chunk(stream, a, b, dev), state,
         start, T, accountant, fault_sched, dev, tel=tel, run_id=run_id,
         kind="run", span_args={"engine": engine}, on_chunk=on_chunk)
@@ -730,6 +806,7 @@ def run(spec: RunSpec, engine: str = "sim", *,
             tel.metrics.gauge("faults.mean_connectivity").set(
                 result.metrics["faults"]["mean_connectivity"])
         result.metrics["obs"] = {"run_id": run_id}
+        _cost_info(result.metrics["obs"], chunk_cost, tel, run_id)
         tel.emit("run_end", run_id=run_id, rounds=T, wall_clock_s=wall,
                  rounds_per_sec=result.rounds_per_sec,
                  accuracy=result.accuracy,
@@ -739,7 +816,8 @@ def run(spec: RunSpec, engine: str = "sim", *,
 
 def run_batch(spec: RunSpec, seeds, engine: str = "sim", *,
               exec: ExecConfig | None = None, horizon: int | None = None,
-              device: str | torch.device = "cuda") -> list[RunResult]:
+              device: str | torch.device = "cuda",
+              **legacy: Any) -> list[RunResult]:
     """Run one configuration under S seeds in step; S RunResults.
 
     Counterpart of `repro.api.run_batch`, whose `jax.vmap` of the chunk
@@ -763,11 +841,17 @@ def run_batch(spec: RunSpec, seeds, engine: str = "sim", *,
     resume bit-identically; a batch resumed at its horizon returns empty
     trajectories, as `run` does.
 
+    ``exec.obs`` instruments the batch as `run` (``run_batch.*`` spans and
+    metrics, one ``run_id`` for the batch); with ``Telemetry(cost=True)``
+    the predicted-vs-measured cost is that of the whole S-seed chunk
+    program. Legacy execution kwargs work as for `run`; the run-only fields
+    (``log_path``, ``print_every``, ``node_mesh``) raise ValueError here.
+
     Raises ValueError when the spec's resolved mixer depends on the seed
     (see `seed_vectorizable`) and ``exec.check_vectorizable`` is set —
     `repro_torch.sweep` falls back to sequential per-seed runs then.
     """
-    cfg = _exec_config(exec, "run_batch")
+    cfg = resolve_exec(exec, legacy, caller="run_batch")
     seeds = [int(s) for s in seeds]
     if not seeds:
         raise ValueError("run_batch needs at least one seed")
@@ -801,7 +885,7 @@ def run_batch(spec: RunSpec, seeds, engine: str = "sim", *,
                  stream=_stream_name(spec, streams[0]), nodes=spec.nodes,
                  dim=spec.dim, horizon=T, start_round=start, seeds=seeds,
                  devices=1)
-    state, outs, xs_all, ys_all, wall, _ = _drive(
+    state, outs, xs_all, ys_all, wall, _, chunk_cost = _drive(
         cfg, chunk_fn, chunk, state, start, T, accountant, fault_sched, dev,
         tel=tel, run_id=run_id, kind="run_batch",
         span_args={"engine": engine, "seeds": S})
@@ -812,6 +896,10 @@ def run_batch(spec: RunSpec, seeds, engine: str = "sim", *,
     conn = _connectivity(fault_mixer, T, start, dev)
     batch_info = {"seeds": seeds, "wall_clock_s": wall, "devices": 1,
                   "pad_seeds": 0, "seed_rounds_per_sec": rate}
+    obs_info = None
+    if tel.enabled:
+        obs_info = {"run_id": run_id}
+        _cost_info(obs_info, chunk_cost, tel, run_id)
     results = []
     for i, (sp, st) in enumerate(zip(specs, streams)):
         traj = {f: None if v is None else np.ascontiguousarray(v[:, i])
@@ -830,8 +918,8 @@ def run_batch(spec: RunSpec, seeds, engine: str = "sim", *,
                       dev=dev, accountant=accountant,
                       fault_sched=fault_sched, conn=conn)
         res.metrics["batch"] = dict(batch_info)
-        if tel.enabled:
-            res.metrics["obs"] = {"run_id": run_id}
+        if obs_info is not None:
+            res.metrics["obs"] = dict(obs_info)
         results.append(res)
     if tel.enabled:
         if conn is not None:
@@ -855,3 +943,54 @@ def _fault_metrics(spec: RunSpec, fault_sched, conn: np.ndarray) -> dict:
         "crash_windows": len(fault_sched.crash_windows),
         "partitions": len(fault_sched.partitions),
     }
+
+
+def _run_custom(spec, engine, *, step_fn, state, batches, horizon,
+                log_path, print_every, checkpoint_every,
+                checkpoint_dir) -> RunResult:
+    """Custom mode: ``horizon`` steps of ``step_fn`` (see `run`)."""
+    if horizon is None:
+        raise ValueError("custom mode needs horizon= (number of steps)")
+    accountant = None
+    if spec is not None:
+        mech = spec.resolve_mechanism()
+        accountant = PrivacyAccountant(
+            eps_per_round=spec.eps if mech.is_private else math.inf)
+    tracker = MetricTracker()
+    logger = CSVLogger(log_path) if log_path else None
+    history = []
+    t0 = time.perf_counter()
+    for i in range(horizon):
+        batch = next(batches)
+        state, metrics = step_fn(state, batch)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        tracker.update(metrics)
+        history.append(metrics)
+        if accountant is not None:
+            accountant.step()
+        if logger:
+            logger.log(i, metrics)
+        if checkpoint_every and checkpoint_dir and \
+                (i + 1) % checkpoint_every == 0:
+            save_checkpoint(checkpoint_dir, i + 1, state)
+        if print_every and (i % print_every == 0 or i == horizon - 1):
+            means = tracker.means()
+            print(f"step {i:4d} loss={means.get('loss', 0):.4f} "
+                  f"ce={means.get('ce', 0):.4f} "
+                  f"sparsity={means.get('theta_sparsity', 0):.3f} "
+                  f"({(time.perf_counter() - t0) / (i + 1):.2f}s/step)")
+    wall = time.perf_counter() - t0
+    if logger:
+        logger.close()
+    return RunResult(
+        engine=engine,
+        rounds=horizon,
+        wall_clock=wall,
+        rounds_per_sec=(horizon / wall) if wall > 0 else float("inf"),
+        eps_ledger=(None if accountant is None
+                    else np.asarray(accountant.ledger())),
+        privacy={} if accountant is None else accountant.summary(),
+        final_state=state,
+        history=history,
+        metrics=tracker.means(),
+    )

@@ -4,7 +4,7 @@ Counterpart of the piece of `repro.api.shard_node` that lowers a mixer to
 its `SparseGraph` (``sparse_graph_and_delay``); the fused backend hands
 that graph's CSR form (or, with many non-zeros per row, its dense (m, m) A)
 to the ``round_update`` kernel it mixes with. The
-node-sharded path itself waits in ROADMAP queue 1 (item 11).
+node-sharded path itself waits in ROADMAP queue 1 (item 4).
 
 >>> from repro_torch.api import MIXERS
 >>> graph, delay = sparse_graph_and_delay(MIXERS.build("hypercube", m=8))

@@ -30,7 +30,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 from repro_torch.kernels.launch import aligned, check, on_card, stream_counter
 
 __all__ = ["hinge_grad", "hinge_grad_plain", "reset_launches", "library",
@@ -107,29 +107,31 @@ def hinge_grad(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor):
             raise ValueError(f"{name} must have shape {shape}")
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
-    if not on_card(dev, "hinge_grad"):
-        return hinge_grad_plain(x, y, w)
-    x, y, w = (aligned(t.to(torch.float32).contiguous()) for t in (x, y, w))
-    lib = library()
-    p = _plan(dev.index, B, n)
-    part = torch.empty(p.scratch, dtype=torch.float32, device=dev)
-    # one allocation for the outputs; g first, so it is 16-byte aligned
-    out = torch.empty(n + 2 * B, dtype=torch.float32, device=dev)
-    g, loss, margin = out[:n], out[n:n + B], out[n + B:]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev)
-        slab = p.path == _SLAB_PATH
-        counter = stream_counter("hinge_grad", dev, stream).data_ptr() \
-            if slab else None
-        code = lib.hg_hinge_grad(
-            x.data_ptr(), y.data_ptr(), w.data_ptr(), B, n, ctypes.byref(p),
-            part.data_ptr(), counter,
-            loss.data_ptr(), margin.data_ptr(), g.data_ptr(),
-            stream.cuda_stream)
-    check(code, "hinge_grad", lib.hg_error_string)
-    hinge_grad.launches += 1
-    hinge_grad.slab_launches += int(slab)
-    return loss, g, margin
+    with work.scope("hinge_grad", B, n):
+        if not on_card(dev, "hinge_grad"):
+            return hinge_grad_plain(x, y, w)
+        x, y, w = (aligned(t.to(torch.float32).contiguous())
+                   for t in (x, y, w))
+        lib = library()
+        p = _plan(dev.index, B, n)
+        part = torch.empty(p.scratch, dtype=torch.float32, device=dev)
+        # one allocation for the outputs; g first, so it is 16-byte aligned
+        out = torch.empty(n + 2 * B, dtype=torch.float32, device=dev)
+        g, loss, margin = out[:n], out[n:n + B], out[n + B:]
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev)
+            slab = p.path == _SLAB_PATH
+            counter = stream_counter("hinge_grad", dev, stream).data_ptr() \
+                if slab else None
+            code = lib.hg_hinge_grad(
+                x.data_ptr(), y.data_ptr(), w.data_ptr(), B, n,
+                ctypes.byref(p), part.data_ptr(), counter,
+                loss.data_ptr(), margin.data_ptr(), g.data_ptr(),
+                stream.cuda_stream)
+        check(code, "hinge_grad", lib.hg_error_string)
+        hinge_grad.launches += 1
+        hinge_grad.slab_launches += int(slab)
+        return loss, g, margin
 
 
 reset_launches()

@@ -23,7 +23,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 from repro_torch.kernels.launch import aligned, check, on_card
 
 __all__ = ["pdomd_update", "pdomd_update_plain", "reset_launches",
@@ -92,24 +92,28 @@ def pdomd_update(theta_self: torch.Tensor, theta_prev: torch.Tensor,
             raise ValueError(f"{name} must have shape {tuple(theta_self.shape)}")
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
-    if not on_card(dev, "pdomd_update"):
-        return pdomd_update_plain(theta_self, theta_prev, theta_next, grad,
-                                  alpha, lam, self_weight, nbr_weight)
-    ins = [aligned(t.to(torch.float32).contiguous())
-           for t in (theta_self, theta_prev, theta_next, grad)]
-    w = torch.empty((rows, LANE), dtype=torch.float32, device=dev)
-    theta_new = torch.empty((rows, LANE), dtype=torch.float32, device=dev)
-    if rows == 0:
+    with work.scope("pdomd_update", rows, LANE):
+        if not on_card(dev, "pdomd_update"):
+            return pdomd_update_plain(theta_self, theta_prev, theta_next,
+                                      grad, alpha, lam, self_weight,
+                                      nbr_weight)
+        ins = [aligned(t.to(torch.float32).contiguous())
+               for t in (theta_self, theta_prev, theta_next, grad)]
+        w = torch.empty((rows, LANE), dtype=torch.float32, device=dev)
+        theta_new = torch.empty((rows, LANE), dtype=torch.float32,
+                                device=dev)
+        if rows == 0:
+            return w, theta_new
+        lib = library()
+        with torch.cuda.device(dev):
+            code = lib.pu_pdomd_update(
+                *(t.data_ptr() for t in ins), _f32(alpha), _f32(lam),
+                _f32(self_weight), _f32(nbr_weight), rows * LANE,
+                w.data_ptr(), theta_new.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        check(code, "pdomd_update", lib.pu_error_string)
+        pdomd_update.launches += 1
         return w, theta_new
-    lib = library()
-    with torch.cuda.device(dev):
-        code = lib.pu_pdomd_update(
-            *(t.data_ptr() for t in ins), _f32(alpha), _f32(lam),
-            _f32(self_weight), _f32(nbr_weight), rows * LANE, w.data_ptr(),
-            theta_new.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    check(code, "pdomd_update", lib.pu_error_string)
-    pdomd_update.launches += 1
-    return w, theta_new
 
 
 reset_launches()

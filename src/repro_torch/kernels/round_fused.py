@@ -62,7 +62,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.prox import soft_threshold
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 from repro_torch.kernels.launch import check, on_card, stream_counter
 
 __all__ = ["round_stats", "round_update", "dual_step", "round_stats_plain",
@@ -198,28 +198,29 @@ def round_stats(theta: torch.Tensor, x: torch.Tensor, lam_t: float,
     dev = theta.device
     _check("theta", theta, (*lead, m, n), dev)
     _check("x", x, (*lead, m, n), dev)
-    if not on_card(dev, "round_stats"):
-        return round_stats_plain(theta, x, lam_t, m_real, prox_l1=prox_l1)
-    lib = library()
-    vec = _vec(n, theta, x)
-    scratch = torch.empty(4 * S * int(lib.rf_stats_scratch_float4s(m, n,
-                                                                   vec)),
-                          dtype=torch.float32, device=dev)
-    dot, xsq, wbdot = (torch.empty((*lead, m), dtype=torch.float32,
-                                   device=dev) for _ in range(3))
-    nnz = torch.empty((*lead, m), dtype=torch.int32, device=dev)
-    wsum = torch.empty((*lead, n), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev)
-        code = lib.rf_round_stats(
-            theta.data_ptr(), x.data_ptr(), float(lam_t), float(m_real),
-            int(bool(prox_l1)), S, m, n, vec, scratch.data_ptr(),
-            stream_counter("round_stats", dev, stream, S).data_ptr(),
-            dot.data_ptr(), xsq.data_ptr(), nnz.data_ptr(), wbdot.data_ptr(),
-            wsum.data_ptr(), stream.cuda_stream)
-    _raise_on_error(code, "round_stats")
-    round_stats.launches += 1
-    return dot, xsq, nnz, wbdot, wsum
+    with work.scope("round_stats", m, n, seeds=S):
+        if not on_card(dev, "round_stats"):
+            return round_stats_plain(theta, x, lam_t, m_real, prox_l1=prox_l1)
+        lib = library()
+        vec = _vec(n, theta, x)
+        scratch = torch.empty(4 * S * int(lib.rf_stats_scratch_float4s(m, n,
+                                                                       vec)),
+                              dtype=torch.float32, device=dev)
+        dot, xsq, wbdot = (torch.empty((*lead, m), dtype=torch.float32,
+                                       device=dev) for _ in range(3))
+        nnz = torch.empty((*lead, m), dtype=torch.int32, device=dev)
+        wsum = torch.empty((*lead, n), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev)
+            code = lib.rf_round_stats(
+                theta.data_ptr(), x.data_ptr(), float(lam_t), float(m_real),
+                int(bool(prox_l1)), S, m, n, vec, scratch.data_ptr(),
+                stream_counter("round_stats", dev, stream, S).data_ptr(),
+                dot.data_ptr(), xsq.data_ptr(), nnz.data_ptr(),
+                wbdot.data_ptr(), wsum.data_ptr(), stream.cuda_stream)
+        _raise_on_error(code, "round_stats")
+        round_stats.launches += 1
+        return dot, xsq, nnz, wbdot, wsum
 
 
 # ---------------------------------------------------------------------------
@@ -403,37 +404,39 @@ def round_update(A: torch.Tensor, theta: torch.Tensor, delta: torch.Tensor,
             raise ValueError(f"csr is for m={csr.m}, theta has m={m}")
         if csr.device != dev:
             raise ValueError(f"csr is on {csr.device}, expected {dev}")
-    if not on_card(dev, "round_update"):
-        return round_update_plain(A, theta, delta, x, recv, coeff, diag,
-                                  alive, alpha_t, use_recv, noise_self,
-                                  csr=csr)
-    if csr is not None and m > SPARSE_MAX_NODES:
-        raise ValueError(f"round_update's sparse path holds all m rows of a "
-                         f"column slab in a block: m <= {SPARSE_MAX_NODES}, "
-                         f"got m={m}")
-    lib = library()
-    out = torch.empty((*lead, m, n), dtype=torch.float32, device=dev)
-    tilde = torch.empty((*lead, m, n), dtype=torch.float32, device=dev)
-    vec = _vec(n, theta, delta, x, recv)
-    flags = (float(alpha_t), int(bool(use_recv)), int(bool(noise_self)), S,
-             m, n, vec, out.data_ptr(), tilde.data_ptr())
-    rows = (theta.data_ptr(), delta.data_ptr(), x.data_ptr(),
-            recv.data_ptr(), coeff.data_ptr(), diag.data_ptr(),
-            alive.data_ptr())
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    nnz = None if csr is None else csr.indices.numel()
+    with work.scope("round_update", m, n, nnz=nnz, seeds=S):
+        if not on_card(dev, "round_update"):
+            return round_update_plain(A, theta, delta, x, recv, coeff, diag,
+                                      alive, alpha_t, use_recv, noise_self,
+                                      csr=csr)
+        if csr is not None and m > SPARSE_MAX_NODES:
+            raise ValueError(
+                f"round_update's sparse path holds all m rows of a column "
+                f"slab in a block: m <= {SPARSE_MAX_NODES}, got m={m}")
+        lib = library()
+        out = torch.empty((*lead, m, n), dtype=torch.float32, device=dev)
+        tilde = torch.empty((*lead, m, n), dtype=torch.float32, device=dev)
+        vec = _vec(n, theta, delta, x, recv)
+        flags = (float(alpha_t), int(bool(use_recv)), int(bool(noise_self)), S,
+                 m, n, vec, out.data_ptr(), tilde.data_ptr())
+        rows = (theta.data_ptr(), delta.data_ptr(), x.data_ptr(),
+                recv.data_ptr(), coeff.data_ptr(), diag.data_ptr(),
+                alive.data_ptr())
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            if csr is not None:
+                code = lib.rf_round_update_sparse(
+                    csr.indptr.data_ptr(), csr.indices.data_ptr(),
+                    csr.weights.data_ptr(), csr.indices.numel(), *rows, *flags,
+                    stream)
+            else:
+                code = lib.rf_round_update(A.data_ptr(), *rows, *flags, stream)
+        _raise_on_error(code, "round_update")
+        round_update.launches += 1
         if csr is not None:
-            code = lib.rf_round_update_sparse(
-                csr.indptr.data_ptr(), csr.indices.data_ptr(),
-                csr.weights.data_ptr(), csr.indices.numel(), *rows, *flags,
-                stream)
-        else:
-            code = lib.rf_round_update(A.data_ptr(), *rows, *flags, stream)
-    _raise_on_error(code, "round_update")
-    round_update.launches += 1
-    if csr is not None:
-        round_update.sparse_launches += 1
-    return out, tilde
+            round_update.sparse_launches += 1
+        return out, tilde
 
 
 # ---------------------------------------------------------------------------
@@ -456,18 +459,19 @@ def dual_step(mixed: torch.Tensor, x: torch.Tensor, theta: torch.Tensor,
         _check(name, t, (m, n), dev)
     for name, t in (("coeff", coeff), ("alive", alive)):
         _check(name, t, (m,), dev)
-    if not on_card(dev, "dual_step"):
-        return dual_step_plain(mixed, x, theta, coeff, alive, alpha_t)
-    lib = library()
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        code = lib.rf_dual_step(
-            mixed.data_ptr(), x.data_ptr(), theta.data_ptr(),
-            coeff.data_ptr(), alive.data_ptr(), float(alpha_t), m, n,
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on_error(code, "dual_step")
-    dual_step.launches += 1
-    return out
+    with work.scope("dual_step", m, n):
+        if not on_card(dev, "dual_step"):
+            return dual_step_plain(mixed, x, theta, coeff, alive, alpha_t)
+        lib = library()
+        out = torch.empty((m, n), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            code = lib.rf_dual_step(
+                mixed.data_ptr(), x.data_ptr(), theta.data_ptr(),
+                coeff.data_ptr(), alive.data_ptr(), float(alpha_t), m, n,
+                out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on_error(code, "dual_step")
+        dual_step.launches += 1
+        return out
 
 
 reset_launches()

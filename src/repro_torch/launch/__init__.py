@@ -1,8 +1,13 @@
 """repro_torch.launch — command-line entry points of the port.
 
-Counterpart of `repro.launch`: ``python -m repro_torch.launch.sweep`` runs
-a sweep (`repro_torch.sweep`), ``python -m repro_torch.launch.serve``
-serves predictions while the ring learns (`repro_torch.serve`), and
-``python -m repro_torch.launch.obs report`` renders a run-event stream
-(`repro_torch.obs`).
+Counterpart of `repro.launch`: ``python -m repro_torch.launch.train
+--stream`` runs the paper's linear workload on a STREAMS scenario
+(`TrainRecipe` of `launch.steps`), ``python -m repro_torch.launch.dryrun
+--stream`` counts its chunk program without running the horizon
+(`launch.op_cost`, the counterpart of `repro.launch.hlo_cost`), ``python -m
+repro_torch.launch.sweep`` runs a sweep (`repro_torch.sweep`), ``python -m
+repro_torch.launch.serve`` serves predictions while the ring learns
+(`repro_torch.serve`), and ``python -m repro_torch.launch.obs report``
+renders a run-event stream (`repro_torch.obs`). The LM modes (``--arch``)
+and the production meshes wait in ROADMAP queue 1 items 4-5.
 """

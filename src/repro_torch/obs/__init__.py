@@ -11,13 +11,13 @@ port publishes into:
     stream (rendered by ``python -m repro_torch.launch.obs report``; the
     format is the reference's, so either package's CLI renders the
     other's streams);
+  * the optional predicted-vs-measured :mod:`~repro_torch.obs.cost` loop
+    (``cost=True``): each run's chunk program is counted once before the
+    timed loop (`repro_torch.launch.op_cost`) and its roofline prediction
+    recorded beside every chunk's measured time;
   * an opt-in ``torch.profiler`` device trace: with ``profile_dir`` set,
     the runner wraps its chunk loop in :meth:`Telemetry.profile`, which
     writes a Chrome trace of the host ops and the card's kernels there.
-
-The reference's predicted-vs-measured chunk cost (``cost=True``,
-``CostModel``, ``ChunkCost``, ``analyze_chunk``, ``calibrate``) reads XLA's
-HLO cost analysis; it is not ported yet and raises, naming the ROADMAP.
 
 Telemetry is OFF by default and ambient: `repro_torch.run`, `run_batch`,
 `repro_torch.sweep` and `repro_torch.serve` consult :func:`active` and do
@@ -48,6 +48,8 @@ import contextlib
 import os
 import uuid
 
+from repro_torch.obs.cost import (ChunkCost, CostModel, analyze_chunk,
+                                  calibrate)
 from repro_torch.obs.events import (DEFAULT_EVENTS_PATH, EventLog,
                                     group_runs, read_events)
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram,
@@ -58,25 +60,8 @@ __all__ = [
     "Telemetry", "enable", "disable", "active",
     "Tracer", "Span", "MetricsRegistry", "Counter", "Gauge", "Histogram",
     "EventLog", "read_events", "group_runs", "DEFAULT_EVENTS_PATH",
+    "CostModel", "ChunkCost", "analyze_chunk", "calibrate",
 ]
-
-_COST_NOT_PORTED = ("the predicted-vs-measured chunk cost (obs.cost: "
-                    "CostModel, ChunkCost, analyze_chunk, calibrate; "
-                    "ROADMAP queue 1 item 3: custom mode and the cost loop)")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    # the wording of repro_torch.api.spec.not_ported, without importing the
-    # api (repro_torch.obs imports nothing else of the package)
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet; it waits in ROADMAP "
-        "queue 1 (use the JAX package `repro` meanwhile)")
-
-
-def __getattr__(name: str):
-    if name in ("CostModel", "ChunkCost", "analyze_chunk", "calibrate"):
-        raise _not_ported(_COST_NOT_PORTED)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 @contextlib.contextmanager
@@ -101,7 +86,10 @@ class Telemetry:
     enabled:      master switch — False makes every hook a no-op (the
                   ambient default).
     events:       an :class:`EventLog`, a path for one, or None (no stream).
-    cost:         the reference's chunk-cost loop; True raises (not ported).
+    cost:         True turns on the predicted-vs-measured chunk-cost loop
+                  (one counted round per chunk program, outside the timed
+                  region, on copies of the state).
+    cost_model:   pin the roofline peaks instead of calibrating.
     profile_dir:  opt-in ``torch.profiler`` capture directory — the runner
                   wraps its chunk loop in :meth:`profile`, which writes a
                   Chrome trace (``trace_*.json``) there.
@@ -109,18 +97,17 @@ class Telemetry:
 
     def __init__(self, *, enabled: bool = True,
                  events: "EventLog | str | None" = None,
-                 cost: bool = False, cost_model=None,
+                 cost: bool = False, cost_model: CostModel | None = None,
                  profile_dir: str | None = None,
                  max_spans: int = 1_000_000):
-        if enabled and (cost or cost_model is not None):
-            raise _not_ported(_COST_NOT_PORTED)
         self.enabled = enabled
         self.tracer = Tracer(enabled=enabled, max_spans=max_spans)
         self.metrics = MetricsRegistry()
         if isinstance(events, str):
             events = EventLog(events)
         self.events = events if enabled else None
-        self.cost_enabled = False
+        self.cost_enabled = bool(cost) and enabled
+        self.cost_model = cost_model
         self.profile_dir = profile_dir if enabled else None
 
     # -- hooks the instrumented code calls ----------------------------------

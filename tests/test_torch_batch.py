@@ -457,8 +457,11 @@ def test_run_batch_refuses_a_seed_dependent_mixer():
 @pytest.mark.parametrize("field,value", [("devices", 2), ("devices", "auto"),
                                          ("mesh", object())])
 def test_seed_sharding_is_refused_naming_the_queue(field, value):
+    """The config carries the field (as the reference's does); the batch
+    that would shard with it refuses it."""
+    cfg = ExecConfig(**{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        ExecConfig(**{field: value})
+        run_batch(_spec(horizon=4), SEEDS, exec=cfg, device="cpu")
 
 
 def test_run_batch_defaults_to_cuda_and_refuses_without_it():

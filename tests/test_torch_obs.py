@@ -2,11 +2,11 @@
 streams, the report CLI, the profiler capture, and the telemetry-off
 bit-identity contract across the port's runner / sweep / serve stack.
 
-Every case of tests/test_obs.py is here but the HLO cost loop's
-(``test_analyze_chunk_predicts_from_hlo``): the port refuses ``cost=True``
-and the cost names, naming the ROADMAP. The event streams of the two
-packages are held to the same event names and field keys, and each
-package's report CLI renders the other's stream exactly as its own.
+Every case of tests/test_obs.py is here but the HLO cost loop's, which
+tests/test_torch_cost.py ports onto the port's op count. The event streams
+of the two packages are held to the same event names and field keys, and
+each package's report CLI renders the other's stream exactly as its own
+(the cost loop's ``chunk_cost`` event included).
 """
 import json
 import os
@@ -233,20 +233,6 @@ def test_disabled_telemetry_is_inert(tmp_path):
     assert tel.tracer.spans == []
     assert not os.path.exists(tmp_path / "e.jsonl")
     assert not os.path.exists(tmp_path / "prof")
-
-
-# -- cost loop: not ported -----------------------------------------------------
-
-def test_cost_loop_is_refused_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        Telemetry(cost=True)
-    with pytest.raises(NotImplementedError, match="cost loop"):
-        obs.enable(cost=True)
-    for name in ("CostModel", "ChunkCost", "analyze_chunk", "calibrate"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            getattr(obs, name)
-    with pytest.raises(NotImplementedError):
-        from repro_torch.obs import CostModel  # noqa: F401
 
 
 # -- runner integration ------------------------------------------------------
@@ -528,14 +514,14 @@ def test_report_cli_missing_stream(tmp_path, capsys):
 def test_report_cli_renders_either_packages_stream_identically(
         writer, tmp_path, capsys):
     """A stream written by one package renders the same through both
-    report CLIs, text and JSON (the reference's carries its chunk_cost)."""
+    report CLIs, text and JSON (each carries its chunk_cost)."""
     path = str(tmp_path / "e.jsonl")
     if writer == "repro":
         tel = jobs.Telemetry(events=path, cost=True)
         jrun(JRunSpec(**SPEC, horizon=8),
              exec=JExecConfig(chunk_rounds=4, warmup=False, obs=tel))
     else:
-        tel = Telemetry(events=path)
+        tel = Telemetry(events=path, cost=True)
         run(_spec(), exec=_cfg(obs=tel), device="cpu")
     tel.close()
     outs = {}
@@ -545,5 +531,4 @@ def test_report_cli_renders_either_packages_stream_identically(
             outs[name, bool(flag)] = capsys.readouterr().out
     assert outs["port", False] == outs["ref", False]
     assert outs["port", True] == outs["ref", True]
-    if writer == "repro":
-        assert "cost: predicted" in outs["port", False]
+    assert "cost: predicted" in outs["port", False]

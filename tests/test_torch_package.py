@@ -235,22 +235,44 @@ def test_package_exports_the_batch_and_the_sweep():
 
 def test_package_exports_serving_and_telemetry():
     """`repro_torch.serve` carries the names `repro.serve` does;
-    `repro_torch.obs` those of `repro.obs` less the HLO cost loop's, which
-    raise naming the ROADMAP; the checkpoint package adds the async
-    writer."""
+    `repro_torch.obs` those of `repro.obs`, the cost loop's included; the
+    checkpoint package adds the async writer."""
     import repro.checkpoint as jcheckpoint
     import repro.obs as jobs
     import repro.serve as jserve
     import repro_torch.checkpoint as checkpoint
     import repro_torch.obs as obs
     import repro_torch.serve as serve
-    cost = ("CostModel", "ChunkCost", "analyze_chunk", "calibrate")
     assert serve.__all__ == jserve.__all__
     assert all(hasattr(serve, name) for name in serve.__all__)
-    assert obs.__all__ == [n for n in jobs.__all__ if n not in cost]
+    assert obs.__all__ == jobs.__all__
     assert all(hasattr(obs, name) for name in obs.__all__)
-    for name in cost:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            getattr(obs, name)
     assert checkpoint.__all__ == jcheckpoint.__all__
     assert ExecConfig().obs is None
+
+
+def test_package_exports_the_runner_surface():
+    """`repro_torch.metrics` carries the names `repro.metrics` does;
+    `repro_torch.api` those of `repro.api` (the Pallas backend's place is
+    the cuda backend's); `repro_torch.launch` has every module of
+    `repro.launch` but the multi-device and LM ones, with `op_cost` for
+    `hlo_cost`."""
+    import pkgutil
+
+    import repro.api as japi
+    import repro.launch as jlaunch
+    import repro.metrics as jmetrics
+    import repro_torch.api as api
+    import repro_torch.launch as launch
+    import repro_torch.metrics as metrics
+    assert metrics.__all__ == jmetrics.__all__
+    assert all(hasattr(metrics, name) for name in metrics.__all__)
+    assert set(japi.__all__) - set(api.__all__) == {"PallasBackend"}
+    assert all(hasattr(api, name) for name in api.__all__)
+    assert api.sweep is repro_torch.sweep.sweep
+    mods = lambda pkg: {m.name for m in pkgutil.iter_modules(  # noqa: E731
+        pkg.__path__)}
+    left = {"mesh", "hlo_analysis", "serve_lm"}   # queue 1 items 4 and 5
+    assert mods(launch) == (mods(jlaunch) - left - {"hlo_cost"}) | \
+        {"op_cost"}
+    assert repro_torch.metrics is metrics
