@@ -162,6 +162,25 @@ Phases (any failure raises, and the script exits non-zero):
                at the paper's width (equal to ``run`` of its spec) and
                ``launch.dryrun``'s count of a 256-round chunk and the peak
                device memory of its counted round.
+17. shard    — the node and seed axes over device meshes at the paper's
+               width, every shard on cuda:0 (the program a mesh of cards
+               runs): ``round_stats`` and ``dual_step`` held against their
+               plain versions and timed at each shard's (16 and 22, 10,000);
+               the run on 4 node shards (block 16) over all 1,562 rounds —
+               4 launches of each a round, no ``round_update``, 2 halo
+               copies a shard a round — equal on the dist engine and on a
+               rerun bit for bit, its largest difference from phase 4 per
+               field, the reference backend's sharded run bit for bit (or
+               where they part, logged, within the contract); 64 rounds on
+               4, 3 (block 22, padding live) and 1 shard held to the
+               unsharded run and each other; ``node_devices=1`` equal to
+               phase 4; link and crash faults on 4 shards held to the
+               unsharded faulty runs, a zero-rate run bit for bit the clean
+               one, ``dcn`` refused (stragglers); seeds 0-2 on 2 seed shards
+               (pad 1) equal to phase 12's batch, a (seed, node) grid of
+               2 x 4 equal to each seed's 4-shard run; a checkpoint at
+               round 768 resumed across 4 -> 1 and 1 -> 4 shards; rounds/s
+               of 1, 3 and 4 shards beside the unsharded run, in turns.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line (time,
 bound, plain-version time and launches of every kernel), and last
@@ -1154,16 +1173,17 @@ def hybrid_phase(fused, card: str) -> int:
     return launches["dual_step"]
 
 
-def _same_run(dist, sim, what: str) -> None:
+def _same_run(dist, sim, what: str, ignore: tuple = ()) -> None:
     """Require a run's RunResult (a dist run, or one seed of a batch) to
     equal another's (the sim run, or the seed's own run) field by field,
     exactly (wall-clock fields, a batch's totals and the engine's name
-    aside, and the telemetry run id in ``metrics``), and its final engine
-    state too."""
+    aside, and the telemetry run id in ``metrics``; ``ignore`` names more
+    fields to leave out), and its final engine state too."""
     import dataclasses
     import numpy as np
     import torch
-    skip = {"engine", "wall_clock", "rounds_per_sec", "final_state"}
+    skip = {"engine", "wall_clock", "rounds_per_sec", "final_state",
+            *ignore}
     timing = {"engine", "wall_clock_s", "rounds_per_sec", "batch", "obs"}
     for f in dataclasses.fields(dist):
         if f.name in skip:
@@ -1614,7 +1634,7 @@ def batch_phase(main, card: str) -> dict:
     log(f"dist batch: {dist[0].metrics['batch']['seed_rounds_per_sec']:.1f} "
         f"seed-rounds/s; every seed equal to the sim batch's, bit for bit "
         f"| {card}")
-    del batch, dist
+    del dist
 
     short = cfg.replace(chunk_rounds=AGREE_ROUNDS, compute_regret=False)
     for name, s, horizon, path in (
@@ -1656,7 +1676,7 @@ def batch_phase(main, card: str) -> dict:
         f"{json.dumps(rates)}; median batch of 3 / sequential {ratio:.2f} "
         f"| {card}")
     return {"launches": launches, "seed_rounds_per_sec": rates,
-            "batch3_over_sequential": ratio}
+            "batch3_over_sequential": ratio, "results": batch}
 
 
 def sweep_phase(card: str) -> dict:
@@ -2264,6 +2284,287 @@ def runner_phase(main, card: str) -> dict:
     return out
 
 
+# -- 17. node and seed sharding ----------------------------------------------
+
+SHARD_COUNTS = (4, 3)       # blocks of 16 and 22 rows (m_pad 66: padding)
+SHARD_ROUNDS = 256          # the grid's rounds and each speed turn's
+SHARD_CKPT = 768            # the checkpoint round of the cross-count resume
+SHARD_TURNS = ("plain", "D4", "D3", "D1", "D1", "D3", "D4", "plain")
+SHARD_GRID_SEEDS = (0, 1)
+SHARD_CRASH = {"crash_rate": 0.05, "crash_rounds": 8}
+
+
+def _card_mesh(shards: int, axes=("node",), shape=None):
+    """A mesh of ``shards`` positions that all repeat cuda:0: the
+    ``shards``-shard program (partition, padding, halo copies, the kernels
+    per shard) on the one card."""
+    from repro_torch.launch.mesh import make_mesh
+    dev = "cuda:0" if DEVICE == "cuda" else DEVICE
+    return make_mesh(shape or (shards,), axes, devices=[dev] * shards)
+
+
+def _shard_counts() -> dict:
+    """The round kernels' launches and the sharded mixer's halo copies."""
+    from repro_torch.api.shard_node import ShardedSparseMixer
+    return {**_launches(), "halo_copies": ShardedSparseMixer.halo_copies}
+
+
+def _reset_shard_counts() -> None:
+    from repro_torch.api.shard_node import ShardedSparseMixer
+    from repro_torch.kernels import round_fused as rf
+    rf.reset_launches()
+    ShardedSparseMixer.reset_halo_copies()
+
+
+def _max_differences(a, b) -> dict:
+    """Every field's largest difference between two runs, over all
+    rounds (and final_w)."""
+    import numpy as np
+    return {f: float(np.abs(np.asarray(getattr(a, f), np.float64)
+                            - np.asarray(getattr(b, f), np.float64)).max())
+            for f in ("correct", "sparsity", "eps_ledger", "loss",
+                      "w_bar_loss", "final_w")}
+
+
+def _first_parting(a, b) -> str:
+    """The first round and field where two runs' trajectories differ."""
+    import numpy as np
+    for f in ("correct", "sparsity", "loss", "w_bar_loss"):
+        x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
+        off = np.flatnonzero((x != y).reshape(x.shape[0], -1).any(axis=1))
+        if off.size:
+            t = int(off[0])
+            return (f"round {t}, field {f}, difference "
+                    f"{float(np.abs(x[t] - y[t]).max())}")
+    return "no trajectory field differs (final_w only)"
+
+
+def _shard_kernel_rows(card: str) -> dict:
+    """The round kernels at each shard's (block, n): held against their
+    plain versions, then timed (inputs rotated past the L2) beside their
+    bounds — the kernels line's per-shard entries."""
+    import torch
+    from repro_torch.kernels import round_fused as rf
+    dev = torch.device(DEVICE)
+    rows = {}
+    for D in SHARD_COUNTS:
+        block = -(-MAIN_M // D)
+        d = _inputs(block, MAIN_N, seed=block, dev=dev)
+        errs = {}
+        for name in ("round_stats", "dual_step"):
+            kern, plain = _calls(rf, d)[name]
+            got = kern()
+            errs[name] = _compare(name, got, plain(), f"block={block}")
+            if name == "round_stats":
+                require(all(torch.equal(a, b) for a, b in zip(got, kern())),
+                        f"round_stats: two calls differ at block={block}")
+        per_set = 4 * 2 * block * MAIN_N
+        sets = [_inputs(block, MAIN_N, seed=s, dev=dev)
+                for s in range(int(L2_BYTES // per_set) + 2)]
+        for name in ("round_stats", "dual_step"):
+            entry = _measure(name, [_calls(rf, s)[name][0] for s in sets],
+                             [_calls(rf, s)[name][1] for s in sets], block,
+                             MAIN_N, errs[name], SOURCE, card)
+            entry["name"] = f"{name}_block{block}"
+            entry["shards"] = D
+            rows[entry["name"]] = entry
+        del d, sets
+        torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _shard_rows_counts(rows: dict, D: int, counts: dict) -> None:
+    """The launches (and halo copies) of the D-shard run into its rows."""
+    block = -(-MAIN_M // D)
+    for name in ("round_stats", "dual_step"):
+        rows[f"{name}_block{block}"]["launches"] = counts[name]
+        rows[f"{name}_block{block}"]["halo_copies"] = counts["halo_copies"]
+
+
+def shard_phase(main, fused, batch: dict, card: str) -> dict:
+    """Phase 17: the node axis and the seed axis over device meshes, at the
+    paper's width, every shard on cuda:0 (the program a mesh of cards
+    runs, on one card). Returns the per-shard kernel rows with their
+    launches."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import ExecConfig, run, run_batch
+    from repro_torch.checkpoint import restore_checkpoint
+    spec = paper_spec()
+    T = spec.horizon
+    cfg = ExecConfig(chunk_rounds=256, compute_regret=False, warmup=False)
+    short = cfg.replace(chunk_rounds=AGREE_ROUNDS)
+    mesh = {D: _card_mesh(D) for D in (4, 3, 1)}
+    rows = _shard_kernel_rows(card)
+
+    # D = 4 over the whole horizon: launches and halo copies, sim == dist,
+    # a rerun, the reference backend
+    _reset_shard_counts()
+    d4 = run(spec, exec=cfg.replace(node_mesh=mesh[4]), device=DEVICE)
+    counts = _shard_counts()
+    log(f"shard D=4: {T} rounds, round loop {d4.wall_clock:.3f} s = "
+        f"{d4.rounds_per_sec:.1f} rounds/s (unsharded, phase 4: "
+        f"{main.rounds_per_sec:.1f}); launches and halo copies {counts} | "
+        f"{card}")
+    want = {"round_stats": 4 * T, "round_update": 0,
+            "round_update_sparse": 0, "dual_step": 4 * T,
+            "halo_copies": 2 * 4 * T}
+    require(counts == want, f"shard D=4: counts {counts}, expected {want}")
+    _shard_rows_counts(rows, 4, counts)
+    for f in ("final_w", "loss", "w_bar_loss", "sparsity"):
+        require(bool(np.isfinite(np.asarray(getattr(d4, f))).all()),
+                f"shard D=4: {f} not finite")
+    require(d4.final_w.shape == (MAIN_M, MAIN_N), "shard D=4: final_w shape")
+    dist = run(spec, engine="dist", exec=cfg.replace(node_mesh=mesh[4]),
+               device=DEVICE)
+    _same_run(dist, d4, "shard D=4: dist vs sim")
+    again = run(spec, exec=cfg.replace(node_mesh=mesh[4]), device=DEVICE)
+    _same_run(again, d4, "shard D=4: rerun")
+    log(f"shard D=4: dist == sim and a rerun == the run, every field and "
+        f"the final state bit for bit over {T} rounds | {card}")
+    log(f"shard D=4 vs phase 4's unsharded run, all {T} rounds, max abs "
+        f"differences: {_max_differences(d4, main)} | {card}")
+    ref = run(spec.replace(backend="reference"),
+              exec=cfg.replace(node_mesh=mesh[4]), device=DEVICE)
+    # held as phase 5 holds the unsharded pair: final_w bit for bit, the
+    # rest within the contract (the per-node dot, so the loss, adds in
+    # another order in round_stats)
+    if np.array_equal(ref.final_w, d4.final_w):
+        log(f"shard D=4: the reference backend's sharded run "
+            f"({ref.rounds_per_sec:.1f} rounds/s) has the cuda backend's "
+            f"final_w bit for bit | {card}")
+        _hold(ref, d4, "shard D=4: reference vs cuda backend", card,
+              rounds=T)
+    else:
+        log(f"shard D=4: the backends PART: {_first_parting(ref, d4)}; "
+            f"over all rounds {_max_differences(ref, d4)} | {card}")
+        _hold(ref, d4, "shard D=4: reference vs cuda backend", card)
+
+    # 64 rounds: D = 4, 3, 1 against the unsharded run and each other
+    runs64 = {}
+    for D in (4, 3, 1):
+        _reset_shard_counts()
+        runs64[D] = run(spec.replace(horizon=AGREE_ROUNDS),
+                        exec=short.replace(node_mesh=mesh[D]), device=DEVICE)
+        counts = _shard_counts()
+        log(f"shard D={D} (block {-(-MAIN_M // D)}): {AGREE_ROUNDS} rounds, "
+            f"counts {counts} | {card}")
+        require(counts["round_stats"] == D * AGREE_ROUNDS
+                and counts["dual_step"] == D * AGREE_ROUNDS
+                and counts["round_update"] == 0,
+                f"shard D={D}: launches {counts}")
+        if D == 3:
+            _shard_rows_counts(rows, 3, counts)
+        _hold(fused, runs64[D], f"shard D={D} vs the unsharded run", card)
+    _hold(runs64[4], runs64[3], "shard D=3 vs D=4", card)
+    plain1 = run(spec, exec=cfg.replace(node_devices=1,
+                                        compute_regret=True), device=DEVICE)
+    _same_run(plain1, main, "node_devices=1 vs phase 4")
+    log(f"shard: node_devices=1 is phase 4's run bit for bit | {card}")
+
+    # faults at D = 4, 64 rounds
+    for name, opts in (("links", {}), ("crash", SHARD_CRASH)):
+        fs = spec.replace(horizon=AGREE_ROUNDS, faults=name,
+                          faults_options=opts)
+        flat = run(fs, exec=short, device=DEVICE)
+        sharded = run(fs, exec=short.replace(node_mesh=mesh[4]),
+                      device=DEVICE)
+        _hold(flat, sharded, f"shard D=4, faults={name}: sharded vs "
+              f"unsharded", card)
+        require(sharded.privacy.get("participated_rounds")
+                == flat.privacy.get("participated_rounds"),
+                f"shard faults={name}: participation differs")
+    zero = run(spec.replace(horizon=AGREE_ROUNDS, faults="links",
+                            faults_options={"link_rate": 0.0}),
+               exec=short.replace(node_mesh=mesh[4]), device=DEVICE)
+    for f in ("final_w", "loss", "correct", "w_bar_loss", "sparsity"):
+        require(np.array_equal(getattr(zero, f), getattr(runs64[4], f)),
+                f"shard zero-rate links: {f} differs from the clean run")
+    try:
+        run(spec.replace(horizon=AGREE_ROUNDS, faults="dcn"),
+            exec=short.replace(node_mesh=mesh[4]), device=DEVICE)
+        raise AssertionError("shard: faults='dcn' ran on the sharded path")
+    except ValueError as e:
+        require("straggler" in str(e), f"shard dcn refusal: {e}")
+    log(f"shard D=4 faults: links and crash (rate 0.05, 8 rounds) held to "
+        f"the unsharded runs; zero-rate links == clean bit for bit; dcn "
+        f"refused (stragglers) | {card}")
+
+    # the seed axis: 2 seed shards (pad 1) == phase 12's batch; the grid
+    _reset_shard_counts()
+    seeds = run_batch(spec, BATCH_SEEDS, device=DEVICE,
+                      exec=cfg.replace(compute_regret=True,
+                                       mesh=_card_mesh(2, ("seed",))))
+    counts = _shard_counts()
+    info = seeds[0].metrics["batch"]
+    require((info["devices"], info["pad_seeds"]) == (2, 1),
+            f"seed shards: batch info {info}")
+    require(counts["round_stats"] == 2 * T and counts["round_update"] == 2 * T,
+            f"seed shards: launches {counts}")
+    for s, a, b in zip(BATCH_SEEDS, seeds, batch["results"]):
+        # a sharded run names the mesh's first device ("cuda:0")
+        _same_run(a, b, f"seed-sharded batch seed {s} vs phase 12's batch",
+                  ignore=("device",))
+    log(f"seed axis: seeds {list(BATCH_SEEDS)} on 2 seed shards (pad 1) "
+        f"equal phase 12's batch bit for bit; "
+        f"{info['seed_rounds_per_sec']:.1f} seed-rounds/s; launches "
+        f"{counts} | {card}")
+    grid_spec = spec.replace(horizon=SHARD_ROUNDS)
+    grid = run_batch(grid_spec, SHARD_GRID_SEEDS, device=DEVICE,
+                     exec=cfg.replace(mesh=_card_mesh(
+                         8, ("seed", "node"), (2, 4))))
+    for s, g in zip(SHARD_GRID_SEEDS, grid):
+        one = run(grid_spec.replace(seed=s), device=DEVICE,
+                  exec=cfg.replace(node_mesh=mesh[4]))
+        _same_run(g, one, f"grid 2x4 seed {s} vs its D=4 run")
+    log(f"seed x node grid 2x4: seeds {list(SHARD_GRID_SEEDS)}, "
+        f"{SHARD_ROUNDS} rounds, each equal to its D=4 run bit for bit; "
+        f"{grid[0].metrics['batch']['seed_rounds_per_sec']:.1f} "
+        f"seed-rounds/s | {card}")
+
+    # checkpoints across shard counts: 4 -> 1 and 1 -> 4 at round 768
+    for save, resume in ((4, 1), (1, 4)):
+        with tempfile.TemporaryDirectory() as d:
+            ck = cfg.replace(checkpoint_every=SHARD_CKPT, checkpoint_dir=d)
+            if save > 1:
+                ck = ck.replace(node_mesh=mesh[save])
+            half = run(spec, horizon=SHARD_CKPT, exec=ck, device=DEVICE)
+            back = restore_checkpoint(d, half.final_state, step=SHARD_CKPT)
+            require(torch.equal(back.theta, half.final_state.theta)
+                    and back.t == SHARD_CKPT
+                    and torch.equal(back.generator.get_state(),
+                                    half.final_state.generator.get_state()),
+                    f"checkpoint {save}->{resume}: the restored state "
+                    "differs from the saved one")
+            rs = cfg.replace(resume=True, checkpoint_dir=d)
+            if resume > 1:
+                rs = rs.replace(node_mesh=mesh[resume])
+            end = run(spec, exec=rs, device=DEVICE)
+        # the uninterrupted runs of the layout it ends in, and of the other
+        same, other = (d4, main) if resume == 4 else (main, d4)
+        off = float(np.abs(end.final_w - same.final_w).max())
+        log(f"checkpoint D={save} -> D={resume} at round {SHARD_CKPT}: the "
+            f"restored state equals the saved one bit for bit; the end's "
+            f"final_w within {off} of the uninterrupted D={resume} run, "
+            f"{float(np.abs(end.final_w - other.final_w).max())} of the "
+            f"D={save} one | {card}")
+        require(end.start_round == SHARD_CKPT and off <= FLOAT_TOL,
+                f"checkpoint {save}->{resume}: final_w off by {off}")
+
+    # rounds/s of D = 1, 3, 4 against the unsharded run, in turns
+    rates = {k: [] for k in ("plain", "D1", "D3", "D4")}
+    turn = spec.replace(horizon=SHARD_ROUNDS)
+    for kind in SHARD_TURNS:
+        c = cfg if kind == "plain" else cfg.replace(
+            node_mesh=mesh[int(kind[1:])])
+        rates[kind].append(run(turn, exec=c, device=DEVICE).rounds_per_sec)
+    log(f"shard rounds/s over {SHARD_ROUNDS} rounds in turns {SHARD_TURNS}: "
+        f"{json.dumps(rates)} | {card}")
+    return {"kernels": rows, "rounds_per_sec": rates}
+
+
 PATHS = {"round_stats": "main, serve", "round_update": "main, serve",
          "dual_step": "hybrid (phase 6, complete, time_varying, faults)",
          "pdomd_update": "ops", "hinge_grad": "ops"}
@@ -2291,6 +2592,7 @@ def main() -> int:
     serve = serve_phase(card)
     telemetry = telemetry_phase(card)
     runner = runner_phase(main_res, card)
+    shard = shard_phase(main_res, fused, batch, card)
     hybrid = {"hybrid": launches["dual_step"],
               **{name: run["launches"]["dual_step"]
                  for name, run in topologies.items()
@@ -2326,6 +2628,9 @@ def main() -> int:
     kernels["round_update"]["sparse_launches"] += serve["launches"][
         "round_update_sparse"]
     kernels["hinge_grad"]["slab_launches"] = launches["hinge_grad_slab"]
+    for name, entry in shard["kernels"].items():
+        entry["path"] = f"node-sharded, {entry['shards']} shards (phase 17)"
+        kernels[name] = entry
     log("topologies (rounds/s, accuracy, regret[-1]): " + json.dumps(
         {name: [run["rounds_per_sec"], run["accuracy"], run["regret_last"]]
          for name, run in topologies.items()}))

@@ -58,6 +58,13 @@ each seed's noise from its own generator, then one batched
 ``dual_step`` over the S*m rows (hybrid) — and a one-seed `run` takes it
 as a batch of one, so a batch's seeds equal their runs bit for bit.
 
+Node sharding (`shard_node.make_node_chunk_fn`): each backend's
+``make_local_round_fn`` builds the round over every shard of a mesh row —
+the reference backend in torch ops, seed by seed and shard by shard (the
+oracle); the cuda backend with one ``round_stats`` and one ``dual_step``
+launch a shard on its (S, block, n) rows and the mix in torch ops after
+the halo copies (`shard_node.ShardedSparseMixer`).
+
 >>> from repro_torch.api import BACKENDS
 >>> BACKENDS.names()
 ('cuda', 'reference')
@@ -92,6 +99,14 @@ class ReferenceBackend:
     def make_batch_chunk_program(self, spec, engine: str,
                                  device: torch.device):
         return reference_batch_chunk_program(spec, engine, device)
+
+    def make_local_round_fn(self, spec, engine: str, part, delay: int,
+                            schedule=None, graph=None, *,
+                            devices) -> Callable:
+        from repro_torch.api import shard_node
+        return shard_node.reference_local_round_fn(
+            spec, engine, part, delay, schedule=schedule, graph=graph,
+            devices=devices)
 
 
 def _check_supported(spec) -> None:
@@ -330,6 +345,100 @@ class CudaBackend:
             return BatchState(theta=theta_next, t=state.t + 1,
                               generators=state.generators,
                               history=hist), out
+
+        return round_fn
+
+    # -- node-sharded round (hybrid: the halo exchange stays in torch ops) --
+
+    def make_local_round_fn(self, spec, engine: str, part, delay: int,
+                            schedule=None, graph=None, *,
+                            devices) -> Callable:
+        """The round over every shard of a mesh row (see
+        `shard_node.reference_local_round_fn` for its state and outputs),
+        S seeds in step: per shard one ``round_stats`` launch on its (S,
+        block, n) rows (w_bar over the global m) and one ``dual_step``
+        after the sharded mix, the per-node algebra as torch ops with each
+        seed's reductions in a one-seed run's order; the noise is drawn
+        once a round per seed, as (m, n), zero-padded and sliced."""
+        from repro_torch.api.clippers import (PerNodeL2Clipper, clip_factor,
+                                              per_node_norms)
+        from repro_torch.api.shard_node import (Blocks, _alive_blocks,
+                                                _masks, _mix_seed,
+                                                _noise_blocks, _pack, _psum,
+                                                _sharded_mixer, _unpack)
+        from repro_torch.core.algorithm1 import RoundOutput
+        from repro_torch.core.prox import zero_fraction
+        from repro_torch.kernels import round_fused as rf
+
+        _check_supported(spec)
+        m, n = part.m, spec.dim
+        if n is None:
+            raise ValueError("RunSpec.dim is required by backend='cuda'")
+        devices = tuple(torch.device(d) for d in devices)
+        dev0 = devices[0]
+        mech = spec.resolve_mechanism()
+        rule = spec.resolve_local_rule()
+        clip = spec.resolve_clipper()
+        omd = spec.omd_config()
+        prox_l1 = rule.prox_kind == "l1"
+        clip_norm = clip.max_norm if isinstance(clip, PerNodeL2Clipper) \
+            else None
+        smixer = _sharded_mixer(part, delay, schedule, graph, devices)
+        masks = _masks(part, devices)
+        imasks = [mk.to(torch.int32) for mk in masks]
+        ones = [torch.ones(part.block, dtype=torch.float32, device=dev)
+                for dev in devices]
+
+        def shard_stats(theta, x, y, ctx):
+            dot, _, nnz, _, wsum = rf.round_stats(theta, x, ctx.lam_t, m,
+                                                  prox_l1=prox_l1)
+            margin = y * dot
+            loss = torch.clamp_min(1.0 - margin, 0.0)
+            correct = (torch.sign(dot) == y).to(torch.float32)
+            active = (margin < 1.0).to(torch.float32)
+            coeff = -(active * y)
+            if clip_norm is not None:
+                coeff = coeff * clip_factor(
+                    active * _per_seed(per_node_norms, x), clip_norm)
+            return coeff, loss, correct, wsum, nnz
+
+        def round_fn(state, batch):
+            xb, yb = batch                 # Blocks of (S, block, n), (S, block)
+            theta, hist = _unpack(engine, state)
+            t, S = state.t, len(state.generators)
+            ctx = omd.step_context(t + 1)
+            stats = [shard_stats(th, x, y, ctx) for th, x, y in
+                     zip(theta.parts, xb.parts, yb.parts)]
+            coeff, loss, correct, wsum, nnz = zip(*stats)
+            # the metrics: per-shard partials, added in shard order
+            w_bar = _psum(wsum, dev0) / m                      # (S, n)
+            wb_loss = _psum([_per_seed(torch.sum, torch.clamp_min(
+                1.0 - y * _per_seed(lambda a: torch.sum(a, dim=-1),
+                                    w_bar.to(x.device)[:, None, :] * x),
+                0.0) * mk) for x, y, mk in zip(xb.parts, yb.parts, masks)],
+                dev0) / m
+            zeros = _psum([((n - nz) * mk).sum(dim=1)
+                           for nz, mk in zip(nnz, imasks)], dev0)
+            sparsity = zero_fraction(zeros, m * n)
+
+            deltas = _noise_blocks(mech, state.generators, m, n,
+                                   mech.scale(ctx.alpha_t, n), part, devices)
+            tilde = theta + Blocks(deltas)
+            mixed = Blocks.stack([
+                _mix_seed(smixer, theta[i], tilde[i],
+                          None if hist is None else hist[i],
+                          mech.noise_self, t) for i in range(S)])
+            alive = _alive_blocks(schedule, t, part, devices) or ones
+            nxt = Blocks(
+                rf.dual_step(_seed_rows(md.contiguous()), _seed_rows(x),
+                             _seed_rows(th), c.reshape(-1),
+                             a.expand(S, -1).reshape(-1),
+                             ctx.alpha_t).view(th.shape)
+                for md, x, th, c, a in zip(mixed.parts, xb.parts,
+                                           theta.parts, coeff, alive))
+            out = RoundOutput(loss=Blocks(loss), w_bar_loss=wb_loss,
+                              sparsity=sparsity, correct=Blocks(correct))
+            return _pack(engine, state, nxt, hist), out
 
         return round_fn
 

@@ -30,22 +30,25 @@ Migration table (old kwarg -> ExecConfig field):
     run(spec, compute_regret=False) -> ExecConfig(compute_regret=False)
     run(spec, warmup=False)         -> ExecConfig(warmup=False)
     run(spec, print_every=10)       -> ExecConfig(print_every=10)
+    run(spec, node_devices=4)       -> ExecConfig(node_devices=4)
+    run(spec, node_mesh=mesh)       -> ExecConfig(node_mesh=mesh)
     run(spec, obs=tel)              -> ExecConfig(obs=tel)
+    run_batch(spec, seeds,
+              devices="auto")       -> ExecConfig(devices="auto")
+    run_batch(spec, seeds, mesh=mesh) -> ExecConfig(mesh=mesh)
     run_batch(..., check_vectorizable=False)
                                     -> ExecConfig(check_vectorizable=False)
 
-The multi-device fields (``node_devices``/``node_mesh`` of `run`,
-``devices``/``mesh`` of `run_batch`) are carried so a config moves between
-the packages unchanged, but the port runs on one card: the caller that
-would use one raises, naming ROADMAP queue 1 item 4.
+The multi-device fields shard a run over a `repro_torch.launch.mesh.Mesh`
+of torch devices: ``node_devices``/``node_mesh`` the node axis (`run`, and
+`run_batch`'s ("seed", "node") grid), ``devices``/``mesh`` the seed axis of
+`run_batch`.
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
 from typing import Any
-
-from repro_torch.api.spec import not_ported
 
 __all__ = ["ExecConfig", "resolve_exec"]
 
@@ -68,10 +71,12 @@ class ExecConfig:
                         out one-time set-up (library load, allocator).
     print_every:        custom-mode (step_fn=) progress prints (run() only).
     node_devices / node_mesh:
-                        the reference's node-axis sharding; not ported (one
-                        card here): `run` raises on either.
-    devices / mesh:     run_batch() only — the reference's seed-axis
-                        sharding; not ported: `run_batch` raises on either.
+                        shard the node axis over a ("node",) mesh
+                        (`repro_torch.api.shard_node`); ``node_devices``
+                        also makes run_batch()'s ("seed", "node") grid.
+                        ``node_mesh`` is run() only.
+    devices / mesh:     run_batch() only — shard the seed axis over a
+                        ("seed",) mesh (or a prebuilt grid).
     check_vectorizable: run_batch() only — refuse a spec whose resolved
                         mixer depends on the seed (`seed_vectorizable`);
                         False skips the check for a caller that already
@@ -106,9 +111,6 @@ class ExecConfig:
 _FIELDS = tuple(f.name for f in dataclasses.fields(ExecConfig))
 _BATCH_ONLY = ("devices", "mesh")
 _RUN_ONLY = ("log_path", "print_every", "node_mesh")
-# the fields each caller would shard with; the port has one card
-_MULTI_DEVICE = {"run": ("node_devices", "node_mesh"),
-                 "run_batch": ("devices", "mesh", "node_devices")}
 
 # one warning per process, not one per call site — a sweep making thousands
 # of legacy calls should nag exactly once
@@ -121,10 +123,9 @@ def resolve_exec(exec_cfg: ExecConfig | None, legacy: dict,
 
     ``legacy`` holds the caller's ``**legacy`` catch-all: deprecated
     execution kwargs forwarded into an ExecConfig (warning once), with
-    typos rejected by name exactly like a real keyword argument would be.
-    After the reference's checks (run-only fields in `run_batch`,
-    batch-only fields in `run`: ValueError), a multi-device field the
-    caller would use raises NotImplementedError.
+    typos rejected by name exactly like a real keyword argument would be;
+    run-only fields in `run_batch` and batch-only fields in `run` raise
+    ValueError.
     """
     global _warned_legacy
     if legacy:
@@ -158,9 +159,4 @@ def resolve_exec(exec_cfg: ExecConfig | None, legacy: dict,
         other = "run_batch" if caller == "run" else "run"
         raise ValueError(f"ExecConfig fields {bad} apply to {other}(), "
                          f"not {caller}()")
-    for name in _MULTI_DEVICE[caller]:
-        if getattr(cfg, name) is not None:
-            raise not_ported(
-                f"ExecConfig.{name} (sharding a run over several devices, "
-                f"ROADMAP queue 1 item 4: multi-device)")
     return cfg

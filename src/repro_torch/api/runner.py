@@ -69,7 +69,7 @@ __all__ = ["run", "run_batch", "seed_vectorizable", "RunResult",
            "BatchState", "make_chunk_program", "make_batch_chunk_program",
            "reference_round_program", "reference_chunk_program",
            "reference_batch_chunk_program", "chunk_loop", "per_seed_round",
-           "batch_init", "stack_states", "seed_state"]
+           "batch_init", "stack_states", "seed_state", "seed_rows_program"]
 
 
 # -- JSON round-trip ---------------------------------------------------------
@@ -396,6 +396,77 @@ def reference_batch_chunk_program(spec: RunSpec, engine: str,
     """(chunk_fn, init_fn) of a seed batch on the reference backend."""
     round_fn, init_fn = reference_round_program(spec, engine, device)
     return chunk_loop(per_seed_round(round_fn, engine)), batch_init(init_fn)
+
+
+def _gen_to(gen: torch.Generator, dev: torch.device) -> torch.Generator:
+    """``gen`` itself on its device, else a generator on ``dev`` in the
+    same state (a CUDA generator's state — seed and offset — draws the
+    same numbers on any card)."""
+    if gen.device == dev:
+        return gen
+    out = torch.Generator(device=dev)
+    out.set_state(gen.get_state())
+    return out
+
+
+def _take_seeds(state: BatchState, idx: list, dev: torch.device,
+                real: int) -> BatchState:
+    """The seeds ``idx`` of a batch as a batch on ``dev``; an index past
+    the first ``real`` positions is a pad seed, with a generator of its
+    own (its draws are thrown away)."""
+    sel = torch.as_tensor(idx)
+    take = lambda a: a[sel.to(a.device)].to(dev)  # noqa: E731
+    gens = [_gen_to(state.generators[i], dev) if k < real
+            else _copy_gen(_gen_to(state.generators[i], dev))
+            for k, i in enumerate(idx)]
+    return BatchState(theta=tree.tree_map(take, state.theta), t=state.t,
+                      generators=tuple(gens),
+                      history=tree.tree_map(take, state.history))
+
+
+def seed_rows_program(programs: list, devices: list,
+                      device: torch.device) -> Callable:
+    """chunk_fn of a seed batch sharded over mesh rows: row r runs
+    ``programs[r]`` (a batch chunk program) on its share of the seeds, on
+    ``devices[r]``.
+
+    State and data cross it global and unpadded on ``device``: inside, the
+    S seeds are padded to a multiple of the rows with duplicates of the
+    last seed (each with its own generator copy), split into equal blocks
+    in seed order, run row by row, and gathered back with the pad seeds
+    dropped. The seeds are independent runs, so every seed's trajectory is
+    its one-device batch's, bit for bit."""
+    from repro_torch.core.algorithm1 import RoundOutput
+
+    R = len(programs)
+
+    def chunk_fn(state: BatchState, xs, ys):
+        S = len(state.generators)
+        pad = (-S) % R
+        per = (S + pad) // R
+        order = list(range(S)) + [S - 1] * pad
+        states, outs = [], []
+        for r, (program, dev) in enumerate(zip(programs, devices)):
+            idx = order[r * per:(r + 1) * per]
+            real = max(0, min(per, S - r * per))
+            sel = torch.as_tensor(idx, device=xs.device)
+            st, out = program(_take_seeds(state, idx, dev, real),
+                              xs[:, sel].to(dev), ys[:, sel].to(dev))
+            states.append((st, real))
+            outs.append(out)
+        cat = lambda *ts: torch.cat(  # noqa: E731
+            [t.to(device) for t in ts])[:S]
+        gens = tuple(_gen_to(g, device) for st, real in states
+                     for g in st.generators[:real])
+        merged = BatchState(
+            theta=tree.tree_map(cat, *(st.theta for st, _ in states)),
+            t=states[0][0].t, generators=gens,
+            history=tree.tree_map(cat, *(st.history for st, _ in states)))
+        return merged, RoundOutput(*(
+            torch.cat([f.to(device) for f in fs], dim=1)[:, :S]
+            for fs in zip(*outs)))
+
+    return chunk_fn
 
 
 def _config_eq(a: Any, b: Any) -> bool:
@@ -738,6 +809,16 @@ def run(spec: RunSpec | None, engine: str = "sim", *,
     bit for bit, since streams are keyed per absolute round and chunking
     never changes a round's math.
 
+    ``node_devices=`` (or a prebuilt ``node_mesh=`` with a "node" axis,
+    `repro_torch.launch.mesh`) SHARDS the node axis: the spec's topology is
+    lowered to its sparse edge-list form and each round runs per shard,
+    with halo copies between shards for the cross-shard edges
+    (`repro_torch.api.shard_node`). The mesh decides where each shard
+    lives; an int D takes D devices of ``device``'s type (D shards on the
+    CPU), and ``node_devices=1`` is the plain path. State entering and
+    leaving each chunk stays global and unpadded, so checkpoints
+    interchange with any device count and with the unsharded path.
+
     ``exec.obs`` (default: the ambient `repro_torch.obs.active()`) is the
     telemetry: when enabled, the run's warm-up, chunks, checkpoints and
     regret are spans (``run.compile``, ``run.chunk``, ``run.checkpoint``,
@@ -761,6 +842,14 @@ def run(spec: RunSpec | None, engine: str = "sim", *,
     if spec is None:
         raise ValueError("run() needs a RunSpec (or step_fn= for custom mode)")
     dev = resolve_device(device)
+    nmesh = None
+    if cfg.node_devices is not None or cfg.node_mesh is not None:
+        from repro_torch.api.shard_node import resolve_node_mesh
+        from repro_torch.launch.mesh import mesh_device
+        nmesh = resolve_node_mesh(cfg.node_devices, cfg.node_mesh,
+                                  device=dev.type)
+        if nmesh is not None:
+            dev = mesh_device(nmesh, dev)
     stream = spec.resolve_stream(device=dev)
     T = horizon or spec.horizon or stream.rounds
     accountant = _accountant(spec, stream)
@@ -773,7 +862,11 @@ def run(spec: RunSpec | None, engine: str = "sim", *,
     tel = cfg.obs if cfg.obs is not None else obslib.active()
     run_id = tel.new_run_id() if tel.enabled else None
 
-    chunk_fn, init_fn = make_chunk_program(spec, engine, dev)
+    if nmesh is None:
+        chunk_fn, init_fn = make_chunk_program(spec, engine, dev)
+    else:
+        from repro_torch.api.shard_node import make_node_chunk_fn
+        chunk_fn, init_fn = make_node_chunk_fn(spec, engine, nmesh)
     state, start = _restore(cfg, init_fn(spec.seed))
     accountant.rounds = start
     if tel.enabled:
@@ -814,6 +907,62 @@ def run(spec: RunSpec | None, engine: str = "sim", *,
     return result
 
 
+def _resolve_seed_mesh(devices, mesh, dev: torch.device):
+    """The ("seed",) mesh to shard the batch over, or None for the
+    one-device batch: ``devices=None`` keeps it, ``"auto"`` takes every
+    visible device (the one-device batch on a one-device host), an int
+    asks for exactly that many; a prebuilt mesh must carry a "seed" axis."""
+    if mesh is not None:
+        if "seed" not in mesh.axis_names:
+            raise ValueError(
+                f"run_batch needs a mesh with a 'seed' axis, got axes "
+                f"{tuple(mesh.axis_names)}")
+        return mesh if int(mesh.shape["seed"]) > 1 else None
+    if devices is None:
+        return None
+    from repro_torch.launch.mesh import seed_mesh
+    return seed_mesh(devices, device=dev.type)
+
+
+def _batch_program(spec: RunSpec, engine: str, cfg: ExecConfig,
+                   dev: torch.device, S: int):
+    """(chunk_fn, init_fn, seed shards D, pad seeds, device) of a batch:
+    the ("seed", "node") grid when ``node_devices`` or a mesh with a
+    "node" axis asks for one, else the ("seed",) mesh of
+    ``devices``/``mesh``, else one device. The global state sits on the
+    mesh's first device."""
+    from repro_torch.launch.mesh import mesh_device, seed_node_mesh
+    devices, mesh = cfg.devices, cfg.mesh
+    if cfg.node_devices is not None or (
+            mesh is not None and "node" in mesh.axis_names):
+        if mesh is not None:
+            if "seed" not in mesh.axis_names:
+                raise ValueError(
+                    "run_batch node sharding needs a ('seed','node') mesh")
+            grid = mesh
+        else:
+            seed_dev = 1 if devices in (None, "auto") else int(devices)
+            grid = seed_node_mesh(seed_dev, cfg.node_devices,
+                                  device=dev.type)
+        if grid is not None:
+            from repro_torch.api.shard_node import make_node_chunk_fn
+            dev = mesh_device(grid, dev)
+            D = int(grid.shape["seed"])
+            return (*make_node_chunk_fn(spec, engine, grid, batched=True),
+                    D, (-S) % D, dev)
+        mesh = None
+    mesh = _resolve_seed_mesh(devices, mesh, dev)
+    if mesh is None:
+        return (*make_batch_chunk_program(spec, engine, dev), 1, 0, dev)
+    dev = mesh_device(mesh, dev)
+    row = mesh.rows("seed")[0]           # row[0] is the first device, dev
+    D = len(row)
+    programs = {d: make_batch_chunk_program(spec, engine, d)
+                for d in set(row)}
+    return (seed_rows_program([programs[d][0] for d in row], list(row), dev),
+            programs[dev][1], D, (-S) % D, dev)
+
+
 def run_batch(spec: RunSpec, seeds, engine: str = "sim", *,
               exec: ExecConfig | None = None, horizon: int | None = None,
               device: str | torch.device = "cuda",
@@ -841,6 +990,18 @@ def run_batch(spec: RunSpec, seeds, engine: str = "sim", *,
     resume bit-identically; a batch resumed at its horizon returns empty
     trajectories, as `run` does.
 
+    ``devices=`` (or a prebuilt ``mesh=`` with a "seed" axis,
+    `repro_torch.launch.mesh`) SHARDS the seed axis: S is padded to a
+    multiple of the D seed shards with duplicates of the last seed, each
+    shard steps its block of seeds on its device on the seed-batched
+    kernels, and the pad seeds are dropped from every trajectory,
+    checkpoint and aggregate (``metrics["batch"]`` reports ``devices`` and
+    ``pad_seeds``); seeds are independent runs, so the results equal the
+    one-device batch's bit for bit. ``node_devices=`` (or a mesh with both
+    axes) makes a ("seed", "node") grid: each seed row runs the
+    node-sharded program (`repro_torch.api.shard_node`) over its seeds;
+    ``devices`` then counts the seed rows (default 1).
+
     ``exec.obs`` instruments the batch as `run` (``run_batch.*`` spans and
     metrics, one ``run_id`` for the batch); with ``Telemetry(cost=True)``
     the predicted-vs-measured cost is that of the whole S-seed chunk
@@ -864,6 +1025,9 @@ def run_batch(spec: RunSpec, seeds, engine: str = "sim", *,
     dev = resolve_device(device)
     specs = [spec.replace(seed=s) for s in seeds]
     base, S = specs[0], len(seeds)
+    # the mesh (if any) decides the device the batch's global state sits on
+    chunk_fn, init_fn, D, pad, dev = _batch_program(base, engine, cfg, dev,
+                                                    S)
     streams = [sp.resolve_stream(device=dev) for sp in specs]
     T = horizon or base.horizon or streams[0].rounds
     accountant = _accountant(base, streams[0])
@@ -877,14 +1041,13 @@ def run_batch(spec: RunSpec, seeds, engine: str = "sim", *,
         return (torch.stack([p[0] for p in pairs], dim=1),
                 torch.stack([p[1] for p in pairs], dim=1))
 
-    chunk_fn, init_fn = make_batch_chunk_program(base, engine, dev)
     state, start = _restore(cfg, init_fn(seeds))
     accountant.rounds = start
     if tel.enabled:
         tel.emit("run_start", run_id=run_id, kind="run_batch", engine=engine,
                  stream=_stream_name(spec, streams[0]), nodes=spec.nodes,
                  dim=spec.dim, horizon=T, start_round=start, seeds=seeds,
-                 devices=1)
+                 devices=D)
     state, outs, xs_all, ys_all, wall, _, chunk_cost = _drive(
         cfg, chunk_fn, chunk, state, start, T, accountant, fault_sched, dev,
         tel=tel, run_id=run_id, kind="run_batch",
@@ -894,8 +1057,8 @@ def run_batch(spec: RunSpec, seeds, engine: str = "sim", *,
     done = T - start
     rate = S * done / wall if wall > 0 else float("inf")
     conn = _connectivity(fault_mixer, T, start, dev)
-    batch_info = {"seeds": seeds, "wall_clock_s": wall, "devices": 1,
-                  "pad_seeds": 0, "seed_rounds_per_sec": rate}
+    batch_info = {"seeds": seeds, "wall_clock_s": wall, "devices": D,
+                  "pad_seeds": pad, "seed_rounds_per_sec": rate}
     obs_info = None
     if tel.enabled:
         obs_info = {"run_id": run_id}

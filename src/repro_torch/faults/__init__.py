@@ -10,8 +10,8 @@ renormalization, so both engines and both backends run under faults.
 Crashed nodes freeze their local update, spend no eps (`PrivacyAccountant`
 participation masks), drop out of mixing and rejoin from their last state.
 A FaultSpec with every rate at zero is bit-identical to a fault-free run.
-The node-sharded ``FaultyShardedSparseMixer`` waits for the port's
-node-sharded path (ROADMAP queue 1, item 4).
+`FaultyShardedSparseMixer` runs the same faults on the node-sharded path
+(`repro_torch.api.shard_node`).
 
 >>> from repro_torch.faults import FAULTS, FaultSpec
 >>> FAULTS.names()
@@ -22,8 +22,9 @@ True
 ((4, 8, 2),)
 """
 from repro_torch.faults.metrics import degradation, rounds_to_recover
-from repro_torch.faults.mixers import (FaultyDenseMixer, FaultySparseMixer,
-                                       wrap_mixer)
+from repro_torch.faults.mixers import (FaultyDenseMixer,
+                                       FaultyShardedSparseMixer,
+                                       FaultySparseMixer, wrap_mixer)
 from repro_torch.faults.schedule import (FaultSchedule, edge_link_idx,
                                          link_table)
 from repro_torch.faults.spec import FAULTS, FaultSpec
@@ -34,6 +35,7 @@ __all__ = [
     "FaultSchedule",
     "FaultySparseMixer",
     "FaultyDenseMixer",
+    "FaultyShardedSparseMixer",
     "wrap_mixer",
     "degradation",
     "rounds_to_recover",
@@ -41,9 +43,3 @@ __all__ = [
     "edge_link_idx",
 ]
 
-
-def __getattr__(name: str):
-    if name == "FaultyShardedSparseMixer":
-        from repro_torch.faults import mixers
-        return getattr(mixers, name)          # raises, naming the ROADMAP
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -20,9 +20,10 @@ diagonal every round. Column stochasticity is given up under faults.
 
 A faulty mixer's per-round keeps and liveness come from the schedule's
 device tables (`FaultSchedule.keep`, `alive_f32`), so a round on a card
-copies nothing from the host. The node-sharded faulty mixer of the
-reference (``FaultyShardedSparseMixer``) waits for the port's node-sharded
-path (ROADMAP queue 1, item 4).
+copies nothing from the host. `FaultyShardedSparseMixer` is the node-sharded
+path's (`repro_torch.api.shard_node`): every shard uses the round's one
+link draw and heals, weighs and adds its rows as `FaultySparseMixer` does
+the same rows.
 
 >>> import torch
 >>> from repro_torch.api.mixers import MIXERS
@@ -50,19 +51,14 @@ from repro_torch.api.mixers import (AlternatingRingMixer, CompleteMixer,
                                     HeterogeneousDelayMixer, MixerBase,
                                     RingRollMixer, SparseMixer, _bcast, _on,
                                     ring_read)
-from repro_torch.api.spec import not_ported
+from repro_torch.api.shard_node import (Blocks, NodePartition,
+                                        ShardedSparseMixer)
 from repro_torch.core.graph import complete_matrix, ring_edges
 from repro_torch.faults.schedule import (FaultSchedule, edge_link_idx,
                                          link_table)
 
-__all__ = ["FaultySparseMixer", "FaultyDenseMixer", "wrap_mixer"]
-
-
-def __getattr__(name: str):
-    if name == "FaultyShardedSparseMixer":
-        raise not_ported("FaultyShardedSparseMixer (the node-sharded path, "
-                         "item 4)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+__all__ = ["FaultySparseMixer", "FaultyDenseMixer",
+           "FaultyShardedSparseMixer", "wrap_mixer"]
 
 
 def _windows_on(t: int, partitions) -> list[int]:
@@ -307,6 +303,92 @@ class FaultyDenseMixer(_FaultyMixer):
     def _delivered(self, t, dev):
         off = self.inner.matrix(t, dev) * _on(self, "_off_f", dev)
         return torch.sum(off * self._keep_mat(t, dev)), torch.sum(off)
+
+
+class FaultyShardedSparseMixer(ShardedSparseMixer):
+    """ShardedSparseMixer under a FaultSchedule — the ("node",) mesh path.
+
+    The round's link keeps are drawn once (`FaultSchedule.keep` on the
+    row's first device) and every shard reads them: the link table is
+    built from the global graph, so a shard's edge maps to the link id its
+    unsharded copy uses. Each shard then computes its rows' healed
+    diagonal mass and effective weights and adds its rows exactly as
+    `FaultySparseMixer` adds the same rows (ascending source, slot by
+    slot), after the base class's halo copies. Self-loops keep 1, and the
+    healed mass folds onto real self-loops only; the partition's
+    zero-weight filler entries are not edges here at all. Stragglers need
+    the per-class delay rings and are refused.
+    """
+
+    def __init__(self, part: NodePartition, graph,
+                 schedule: FaultSchedule, delay: int = 0, devices=None):
+        super().__init__(part, delay=delay, devices=devices)
+        if schedule.max_extra:
+            raise ValueError(
+                "stragglers are not supported on the node-sharded path — "
+                "drop straggler_* from the FaultSpec or run unsharded")
+        self.schedule = schedule
+        m, block = int(graph.m), part.block
+        uniq, self.num_links = link_table(graph.dst, graph.src, m)
+        per_shard = []
+        for d, (e, dev) in enumerate(zip(self._edges, self.devices)):
+            dst_g = d * block + e.dst
+            idx, valid = edge_link_idx(uniq, dst_g, e.src_g, m)
+            loops = dst_g == e.src_g
+            on = lambda a: torch.as_tensor(a).to(dev)  # noqa: E731
+            per_shard.append(dict(
+                link_idx=on(idx.astype(np.int64)), forced=on(loops | ~valid),
+                loop_f=on(loops.astype(np.float32)), src=on(e.src_g),
+                dst=on(e.dst), w=on(e.weight),
+                cross=tuple(on((((dst_g < cut) != (e.src_g < cut)) & ~loops)
+                               .astype(np.float32))
+                            for _, _, cut in schedule.partitions)))
+        self._fault = tuple(per_shard)
+
+    def _keeps(self, t: int) -> list:
+        """Each shard's (E_d,) keep per stored edge; self-loops are 1."""
+        sched, dev0 = self.schedule, self.devices[0]
+        links = sched.keep(t, self.num_links, dev0)
+        alive = sched.alive_f32(t, dev0) if sched.has_crashes else None
+        windows = _windows_on(t, sched.partitions)
+        keeps = []
+        for f, dev in zip(self._fault, self.devices):
+            keep = links.to(dev)[f["link_idx"]]
+            if alive is not None:
+                # a crashed SOURCE sends nothing; the destination row heals
+                keep = keep * alive.to(dev)[f["src"]]
+            for k in windows:
+                keep = keep * (1.0 - f["cross"][k])
+            keeps.append(torch.where(f["forced"], 1.0, keep))
+        return keeps
+
+    def _weights(self, t: int) -> list:
+        """Per shard (effective edge weights, (block,) healed mass): the
+        healed mass of a row sums its dropped weights slot by slot."""
+        out = []
+        for d, (f, keep) in enumerate(zip(self._fault, self._keeps(t))):
+            dropped = f["w"] * (1.0 - keep)
+            healed = torch.zeros(self.part.block, dtype=torch.float32,
+                                 device=keep.device)
+            for rows, _, edges, _ in self._slots[d]:
+                if rows.numel() == self.part.block:
+                    healed = healed + dropped[edges]
+                else:
+                    healed[rows] = healed[rows] + dropped[edges]
+            out.append((f["w"] * keep + f["loop_f"] * healed[f["dst"]],
+                        healed))
+        return out
+
+    def apply(self, x: Blocks, t) -> Blocks:
+        bufs = self._exchange(x)
+        return Blocks(
+            self._slot_sum(d, [w_eff[s[2]] for s in self._slots[d]], buf)
+            for d, ((w_eff, _), buf) in enumerate(zip(self._weights(t),
+                                                      bufs)))
+
+    def diag(self, t) -> Blocks:
+        return Blocks(base + healed for base, (_, healed) in
+                      zip(self._diag_blocks.parts, self._weights(t)))
 
 
 def wrap_mixer(mixer, schedule: FaultSchedule):

@@ -8,6 +8,7 @@ Counterpart of `repro.launch`: ``python -m repro_torch.launch.train
 repro_torch.launch.sweep`` runs a sweep (`repro_torch.sweep`), ``python -m
 repro_torch.launch.serve`` serves predictions while the ring learns
 (`repro_torch.serve`), and ``python -m repro_torch.launch.obs report``
-renders a run-event stream (`repro_torch.obs`). The LM modes (``--arch``)
-and the production meshes wait in ROADMAP queue 1 items 4-5.
+renders a run-event stream (`repro_torch.obs`); `launch.mesh` builds the
+device meshes that shard a run's node or seed axis. The LM modes
+(``--arch``) and the LM production meshes wait in ROADMAP queue 1 item 5.
 """

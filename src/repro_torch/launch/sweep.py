@@ -109,8 +109,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="error instead of falling back on seed-dependent "
                          "stages")
     ap.add_argument("--devices", default=None, metavar="N|auto",
-                    help="not ported: sharding the seed axis over several "
-                         "devices waits in ROADMAP queue 1 item 4")
+                    help="shard the batched seed axis over N devices "
+                         "(a ('seed',) mesh; 'auto' = every visible one)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the runs happen (default: the CUDA card)")
     # store
@@ -126,10 +126,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> dict:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.devices is not None:
-        ap.error("--devices: sharding a seed batch over several devices is "
-                 "not ported to repro_torch yet; it waits in ROADMAP queue 1 "
-                 "item 4 (multi-device)")
     axes = dict(parse_axis(a) for a in args.axis)
     base = RunSpec(
         nodes=args.nodes, dim=args.dim, horizon=args.horizon, eps=args.eps,
@@ -145,7 +141,10 @@ def main(argv: list[str] | None = None) -> dict:
         seeds=tuple(int(s) for s in args.seeds.split(",")),
         engine=args.engine, name=args.name,
         chunk_rounds=args.chunk_rounds,
-        compute_regret=not args.no_regret, vectorize_seeds=vectorize)
+        compute_regret=not args.no_regret, vectorize_seeds=vectorize,
+        devices=(None if args.devices is None
+                 else "auto" if args.devices == "auto"
+                 else int(args.devices)))
     try:
         out = sweep(spec, store=None if args.no_store else args.store,
                     reuse=args.from_store, verbose=True,

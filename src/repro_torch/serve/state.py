@@ -39,7 +39,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.api.spec import RunSpec, not_ported
+from repro_torch.api.spec import RunSpec
 from repro_torch.device import resolve_device
 
 __all__ = ["Snapshot", "ServeState", "make_predict_fn", "snapshot_from_state",
@@ -208,21 +208,24 @@ def verify_snapshot(spec: RunSpec, engine: str, snapshot: Snapshot, *,
     (any chunking — a round's math does not depend on it) on the
     snapshot's device and compares the recovered primal models bit for
     bit: a served prediction is exactly what the model at the recorded
-    round says. ``atol`` > 0 bounds the difference instead. Verifying a
-    node-sharded trainer (``node_devices``) is not ported: it raises.
+    round says. ``atol`` > 0 bounds the difference instead.
+
+    A NODE-SHARDED trainer (``run(..., exec=ExecConfig(node_devices=D))``,
+    see `repro_torch.api.shard_node`) is verified by replaying under the
+    same ``node_devices`` (D shards of the snapshot's device type): the
+    sharded program is deterministic, so the replay is bit for bit.
+    Across layouts (a sharded snapshot against an unsharded replay, or the
+    other way) only float32 reduction order differs; pass ``atol``.
     """
     from repro_torch.api.exec_config import ExecConfig
     from repro_torch.api.runner import run
-    if node_devices is not None:
-        raise not_ported("verify_snapshot(node_devices=...) (the node-"
-                         "sharded trainer, ROADMAP queue 1 item 4: "
-                         "multi-device)")
     if snapshot.round == 0:
         return bool(torch.all(torch.as_tensor(snapshot.w) == 0.0))
     ref = run(spec, engine=engine, horizon=snapshot.round,
               device=torch.as_tensor(snapshot.w).device,
               exec=ExecConfig(chunk_rounds=chunk_rounds,
-                              compute_regret=False, warmup=False))
+                              compute_regret=False, warmup=False,
+                              node_devices=node_devices))
     ref_snap = snapshot_from_state(spec, engine, ref.final_state,
                                    version=-1, eps_spent=0.0)
     pairs = [(torch.as_tensor(snapshot.w).cpu(), ref_snap.w.cpu()),

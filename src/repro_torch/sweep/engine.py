@@ -136,11 +136,14 @@ def _run_point(point: SweepPoint, spec: SweepSpec, *, warmup: bool,
                      compute_regret=spec.compute_regret, warmup=warmup)
     if vec:
         # spec.vectorize_seeds=None means WE just verified vectorizability;
-        # an explicit True still lets run_batch's own check raise
+        # an explicit True still lets run_batch's own check raise. A
+        # seed-dependent stage falls back to sequential runs below,
+        # whatever spec.devices asks for
         return run_batch(point.spec, seeds, engine=spec.engine,
                          exec=cfg.replace(
                              check_vectorizable=spec.vectorize_seeds
-                             is not None), device=device)
+                             is not None, devices=spec.devices),
+                         device=device)
     return [run(point.spec.replace(seed=s), engine=spec.engine, exec=cfg,
                 device=device)
             for s in seeds]

@@ -37,7 +37,7 @@ import dataclasses
 import itertools
 from typing import Any, Mapping, Sequence
 
-from repro_torch.api.spec import RunSpec, not_ported
+from repro_torch.api.spec import RunSpec
 
 __all__ = ["SweepSpec", "SweepPoint"]
 
@@ -76,8 +76,10 @@ class SweepSpec:
     vectorize_seeds: True forces the batched path (error when
              impossible), False forces sequential per-seed run() calls,
              None (default) picks automatically per point.
-    devices: the reference's sharding of the seed axis over several
-             devices; not ported (one card here): anything but None raises.
+    devices: shard the batched seed axis over this many devices
+             (`repro_torch.api.run_batch(exec=ExecConfig(devices=))` — a
+             ("seed",) mesh); None / 1 keeps the one-device batch,
+             "auto" uses every visible device.
     """
 
     base: RunSpec
@@ -93,10 +95,11 @@ class SweepSpec:
     def __post_init__(self):
         if not self.seeds:
             raise ValueError("SweepSpec needs at least one seed")
-        if self.devices is not None:
-            raise not_ported(
-                "SweepSpec.devices (sharding a seed batch over several "
-                "devices, ROADMAP queue 1 item 4: multi-device)")
+        if self.devices is not None and self.devices != "auto":
+            if not isinstance(self.devices, int) or self.devices < 1:
+                raise ValueError(
+                    f"devices must be None, 'auto' or a positive int, got "
+                    f"{self.devices!r}")
         if len(set(self.seeds)) != len(tuple(self.seeds)):
             raise ValueError(f"duplicate seeds: {tuple(self.seeds)}")
         if self.engine not in ("sim", "dist"):

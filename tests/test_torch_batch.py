@@ -40,6 +40,7 @@ from repro_torch.api import seed_vectorizable  # noqa: E402
 from repro_torch.api.mechanisms import LaplaceMechanism  # noqa: E402
 from repro_torch.core.graph import SparseGraph, ring_edges  # noqa: E402
 from repro_torch.kernels import round_fused as rf  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 
 SEEDS = (0, 1, 2)
 ATOL = 5e-6
@@ -452,16 +453,27 @@ def test_run_batch_refuses_a_seed_dependent_mixer():
     assert len(out) == 2
 
 
-# -- (f) what stays with the multi-device queue ---------------------------------
+# -- (f) the seed axis over a mesh ------------------------------------------------
 
 @pytest.mark.parametrize("field,value", [("devices", 2), ("devices", "auto"),
-                                         ("mesh", object())])
+                                         ("mesh", make_mesh((2,), ("seed",),
+                                                            device="cpu"))])
 def test_seed_sharding_is_refused_naming_the_queue(field, value):
-    """The config carries the field (as the reference's does); the batch
-    that would shard with it refuses it."""
-    cfg = ExecConfig(**{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        run_batch(_spec(horizon=4), SEEDS, exec=cfg, device="cpu")
+    """The config's seed-sharding field shards the batch (no longer
+    refused): every seed bit for bit the one-device batch, and the batch
+    reports its seed shards and pad seeds ("auto" on the CPU is one
+    device)."""
+    cfg = ExecConfig(chunk_rounds=2, warmup=False, compute_regret=False)
+    spec = _spec(horizon=4)
+    sharded = run_batch(spec, SEEDS, exec=cfg.replace(**{field: value}),
+                        device="cpu")
+    plain = run_batch(spec, SEEDS, exec=cfg, device="cpu")
+    D = 1 if value == "auto" else 2
+    info = sharded[0].metrics["batch"]
+    assert (info["devices"], info["pad_seeds"]) == (D, (-len(SEEDS)) % D)
+    for a, b in zip(sharded, plain):
+        for f in ("final_w", "loss", "correct", "w_bar_loss", "sparsity"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
 
 
 def test_run_batch_defaults_to_cuda_and_refuses_without_it():

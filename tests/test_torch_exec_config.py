@@ -4,9 +4,9 @@ Every case of tests/test_exec_config.py on the port, each refusal's
 message held to the message the reference gives for the same call (the
 package name aside). Then: the legacy spelling equals the ``exec=``
 spelling bit for bit on both entry points, the two ExecConfigs have the
-same fields and defaults, and the multi-device fields the port cannot
-honour raise NotImplementedError in the caller that would use them,
-naming ROADMAP queue 1 item 4.
+same fields and defaults, and the multi-device fields shard the call
+that uses them (on the CPU, D shards of ``cpu``), by ``exec=`` and by
+legacy kwarg alike.
 """
 import dataclasses
 import warnings
@@ -25,6 +25,7 @@ from repro.api.runner import run_batch as jrun_batch  # noqa: E402
 from repro_torch.api import ExecConfig, RunSpec, run  # noqa: E402
 from repro_torch.api import exec_config as ec  # noqa: E402
 from repro_torch.api.runner import run_batch  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 
 SPEC = dict(nodes=4, dim=16, horizon=6, eps=1.0, alpha0=0.5, lam=0.01,
             stream="drift", stream_options={"period": 3})
@@ -185,29 +186,52 @@ def test_defaults_match_old_signature_defaults():
     assert cfg.checkpoint_every is None and cfg.checkpoint_dir is None
 
 
-# -- what stays with the multi-device queue -----------------------------------
+# -- the multi-device fields ---------------------------------------------------
 
 @pytest.mark.parametrize("legacy", [{"devices": 2}, {"devices": "auto"},
-                                    {"mesh": object()},
+                                    {"mesh": make_mesh((2,), ("seed",),
+                                                       device="cpu")},
                                     {"node_devices": 2}])
 def test_run_batch_sharding_is_refused_naming_the_queue(legacy):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        run_batch(_spec(), [0, 1], device="cpu", **legacy)
+    """Each sharding field, passed as a legacy kwarg, shards the batch (no
+    longer refused): the seed axis bit for bit the one-device batch, the
+    ("seed", "node") grid within the float contract of it."""
+    ec._warned_legacy = jec._warned_legacy = True
+    kw = dict(chunk_rounds=3, warmup=False, compute_regret=False)
+    sharded = run_batch(_spec(), [0, 1], device="cpu", **legacy, **kw)
+    plain = run_batch(_spec(), [0, 1], device="cpu", **kw)
+    seed_axis = "node_devices" not in legacy
+    for a, b in zip(sharded, plain):
+        np.testing.assert_array_equal(a.correct, b.correct)
+        np.testing.assert_array_equal(a.sparsity, b.sparsity)
+        d = np.abs(a.final_w - b.final_w).max()
+        assert d == 0.0 if seed_axis else d <= 5e-6
 
 
 @pytest.mark.parametrize("field,value", [("node_devices", 2),
                                          ("node_devices", "auto"),
-                                         ("node_mesh", object())])
+                                         ("node_mesh",
+                                          make_mesh((2,), ("node",),
+                                                    device="cpu"))])
 def test_run_node_sharding_is_refused_naming_the_queue(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        run(_spec(), device="cpu", **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        run(_spec(), exec=ExecConfig(**{field: value}), device="cpu")
+    """node_devices / node_mesh shard the node axis (no longer refused),
+    by legacy kwarg and by ``exec=`` alike, within the float contract of
+    the plain run ("auto" on the CPU, one device, is the plain run)."""
+    ec._warned_legacy = jec._warned_legacy = True
+    kw = dict(chunk_rounds=3, warmup=False, compute_regret=False)
+    plain = run(_spec(), exec=ExecConfig(**kw), device="cpu")
+    legacy = run(_spec(), device="cpu", **{field: value}, **kw)
+    via_exec = run(_spec(), exec=ExecConfig(**{field: value}, **kw),
+                   device="cpu")
+    np.testing.assert_array_equal(legacy.final_w, via_exec.final_w)
+    np.testing.assert_array_equal(legacy.correct, plain.correct)
+    np.testing.assert_array_equal(legacy.sparsity, plain.sparsity)
+    assert np.abs(legacy.final_w - plain.final_w).max() <= 5e-6
 
 
 def test_config_carries_the_multi_device_fields():
     """Building the config never raises: a config moves between the
-    packages unchanged, and only the caller refuses what it cannot do."""
+    packages unchanged."""
     cfg = ExecConfig(devices=4, mesh="m", node_devices=2, node_mesh="n")
     assert (cfg.devices, cfg.node_devices) == (4, 2)
     assert ExecConfig(**dataclasses.asdict(JExecConfig(devices=4))) \

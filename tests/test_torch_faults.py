@@ -568,5 +568,4 @@ def test_package_exports_the_faults():
                  "rounds_to_recover"):
         assert getattr(repro_torch, name) is getattr(faults, name)
         assert getattr(repro_torch.api, name) is getattr(faults, name)
-    assert sorted(faults.__all__) == sorted(
-        n for n in jfaults.__all__ if n != "FaultyShardedSparseMixer")
+    assert sorted(faults.__all__) == sorted(jfaults.__all__)

@@ -157,9 +157,9 @@ def test_registries_name_what_the_slice_carries():
                                    "dcn"])
 def test_unported_stages_raise_naming_the_roadmap(value):
     """Every name of the reference's FAULTS registry resolves in the port
-    and runs on both engines and both backends; what of `repro.faults` is
-    still unported — the node-sharded faulty mixer — raises, naming the
-    ROADMAP."""
+    and runs on both engines and both backends, and `repro.faults` is
+    ported whole (the node-sharded faulty mixer too); what still raises,
+    naming the ROADMAP, is the LM stack's production meshes (item 5)."""
     import repro_torch.faults as faults
     from repro.faults import FAULTS
     assert value in FAULTS.names() and value in faults.FAULTS.names()
@@ -172,8 +172,12 @@ def test_unported_stages_raise_naming_the_roadmap(value):
             assert res.metrics["faults"]["spec"] == value
             assert res.connectivity.shape == (4,)
             assert np.isfinite(res.final_w).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        faults.FaultyShardedSparseMixer
+    from repro_torch.api.shard_node import ShardedSparseMixer
+    from repro_torch.launch import mesh
+    assert issubclass(faults.FaultyShardedSparseMixer, ShardedSparseMixer)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1 item 5"):
+        mesh.make_production_mesh()
 
 
 def test_dist_engine_is_not_ported():
@@ -272,7 +276,25 @@ def test_package_exports_the_runner_surface():
     assert api.sweep is repro_torch.sweep.sweep
     mods = lambda pkg: {m.name for m in pkgutil.iter_modules(  # noqa: E731
         pkg.__path__)}
-    left = {"mesh", "hlo_analysis", "serve_lm"}   # queue 1 items 4 and 5
+    left = {"hlo_analysis", "serve_lm"}           # queue 1 item 5
     assert mods(launch) == (mods(jlaunch) - left - {"hlo_cost"}) | \
         {"op_cost"}
+    import repro.launch.mesh as jmesh
+    from repro_torch.launch import mesh
+    assert all(hasattr(mesh, name) for name in dir(jmesh)
+               if callable(getattr(jmesh, name)) and not name.startswith("_")
+               and getattr(jmesh, name).__module__ == jmesh.__name__)
     assert repro_torch.metrics is metrics
+
+
+@pytest.mark.parametrize("name,args", [("make_production_mesh", ()),
+                                       ("make_test_mesh", ()),
+                                       ("gossip_axes", (None,)),
+                                       ("gossip_nodes", (None,)),
+                                       ("data_axes_for_batch", (None,))])
+def test_lm_production_meshes_raise_naming_item_5(name, args):
+    """The device meshes of the node and seed axes are ported; the LM
+    stack's production meshes (ROADMAP queue 1 item 5) raise, naming it."""
+    from repro_torch.launch import mesh
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
+        getattr(mesh, name)(*args)

@@ -173,11 +173,21 @@ def test_verify_snapshot_atol_bounds_cross_layout_drift():
 
 
 def test_verify_snapshot_node_devices_is_not_ported():
-    spec = _spec()
-    state = _state(spec)
-    snap = state.publish_initial()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        verify_snapshot(spec, "sim", snap, node_devices=2)
+    """verify_snapshot(node_devices=) is ported: a snapshot of a
+    2-shard run replays bit for bit under 2 shards, within the float
+    contract under none, and the round-0 snapshot is all zeros."""
+    from repro_torch.serve.state import snapshot_from_state
+    spec = _spec(horizon=8)
+    snap0 = _state(spec).publish_initial()
+    assert verify_snapshot(spec, "sim", snap0, node_devices=2)
+    res = run(spec, exec=ExecConfig(chunk_rounds=4, warmup=False,
+                                    compute_regret=False, node_devices=2),
+              device=CPU)
+    snap = snapshot_from_state(spec, "sim", res.final_state, version=1,
+                               eps_spent=1.0)
+    assert verify_snapshot(spec, "sim", snap, chunk_rounds=3,
+                           node_devices=2)
+    assert verify_snapshot(spec, "sim", snap, atol=5e-6)
 
 
 def test_serving_entry_points_default_to_cuda_and_refuse_without_it():

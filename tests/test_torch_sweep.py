@@ -108,8 +108,18 @@ def test_spec_validation(kw, match):
 
 @pytest.mark.parametrize("devices", [2, "auto"])
 def test_spec_devices_refused_naming_the_queue(devices):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        SweepSpec(base=_spec(), devices=devices)
+    """SweepSpec.devices is ported (no longer refused): the sweep shards
+    each point's seed batch and equals the one-device sweep bit for bit."""
+    sw = dict(base=_spec(), axes={"eps": (0.5,)}, seeds=(0, 1, 2),
+              chunk_rounds=6, compute_regret=False)
+    sharded = sweep(SweepSpec(**sw, devices=devices), store=None,
+                    warmup=False, device="cpu")
+    plain = sweep(SweepSpec(**sw), store=None, warmup=False, device="cpu")
+    for a, b in zip(sharded.results[0], plain.results[0]):
+        np.testing.assert_array_equal(a.final_w, b.final_w)
+        np.testing.assert_array_equal(a.correct, b.correct)
+    assert sharded.results[0][0].metrics["batch"]["devices"] == (
+        1 if devices == "auto" else 2)
 
 
 # -- RunResult JSON round-trip ----------------------------------------------
@@ -421,7 +431,11 @@ def test_cli_main_smoke(tmp_path):
 
 
 def test_cli_refuses_devices_naming_the_queue(tmp_path, capsys):
+    """--devices is ported (no longer refused): N shards the seed batch,
+    and a bad value is the spec's ValueError."""
     from repro_torch.launch.sweep import main
-    with pytest.raises(SystemExit):
-        main(CLI + ["--axis", "eps=0.5", "--devices", "2", "--no-store"])
-    assert "ROADMAP queue 1 item 4" in capsys.readouterr().err
+    out = main(CLI + ["--axis", "eps=0.5", "--seeds", "0,1,2", "--devices",
+                      "2", "--no-store"])
+    assert out["summary"]["ran_points"] == 1
+    with pytest.raises(ValueError, match="devices"):
+        main(CLI + ["--axis", "eps=0.5", "--devices", "0", "--no-store"])
