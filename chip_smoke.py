@@ -162,25 +162,41 @@ Phases (any failure raises, and the script exits non-zero):
                at the paper's width (equal to ``run`` of its spec) and
                ``launch.dryrun``'s count of a 256-round chunk and the peak
                device memory of its counted round.
-17. shard    — the node and seed axes over device meshes at the paper's
-               width, every shard on cuda:0 (the program a mesh of cards
-               runs): ``round_stats`` and ``dual_step`` held against their
-               plain versions and timed at each shard's (16 and 22, 10,000);
-               the run on 4 node shards (block 16) over all 1,562 rounds —
-               4 launches of each a round, no ``round_update``, 2 halo
-               copies a shard a round — equal on the dist engine and on a
-               rerun bit for bit, its largest difference from phase 4 per
-               field, the reference backend's sharded run bit for bit (or
-               where they part, logged, within the contract); 64 rounds on
-               4, 3 (block 22, padding live) and 1 shard held to the
-               unsharded run and each other; ``node_devices=1`` equal to
-               phase 4; link and crash faults on 4 shards held to the
-               unsharded faulty runs, a zero-rate run bit for bit the clean
-               one, ``dcn`` refused (stragglers); seeds 0-2 on 2 seed shards
-               (pad 1) equal to phase 12's batch, a (seed, node) grid of
-               2 x 4 equal to each seed's 4-shard run; a checkpoint at
-               round 768 resumed across 4 -> 1 and 1 -> 4 shards; rounds/s
-               of 1, 3 and 4 shards beside the unsharded run, in turns.
+17. shard    — the node and seed axes over device meshes at the paper's width,
+               every shard on cuda:0 (the program a mesh of cards runs):
+               ``round_stats`` and ``dual_step`` held against their plain
+               versions and timed at each shard's (16 and 22, 10,000); the run
+               on 4 node shards (block 16) over all 1,562 rounds — 4 launches
+               of each a round, no ``round_update``, 2 halo copies a shard a
+               round — equal on the dist engine and on a rerun bit for bit,
+               equal to phase 4 in final_w, correct, sparsity and eps_ledger
+               bit for bit in every round (the sharded ring adds each row in
+               the unsharded ring's order; loss and w_bar_loss within 5e-6,
+               the metric sums add in shard order), the reference backend's
+               sharded run bit for bit (or where they part, logged, within the
+               contract); 64 rounds on 4, 3 (block 22, padding live) and 1
+               shard held to the unsharded run and each other;
+               ``node_devices=1`` equal to phase 4; link and crash faults on 4
+               shards held to the unsharded faulty runs, a zero-rate run bit
+               for bit the clean sparse ring (the edge list a faulty mixer
+               lowers the ring to), ``dcn`` refused (stragglers); seeds 0-2 on
+               2 seed shards (pad 1) equal to phase 12's batch, a (seed, node)
+               grid of 2 x 4 equal to each seed's 4-shard run; a checkpoint at
+               round 768 resumed across 4 -> 1 and 1 -> 4 shards; rounds/s of
+               1, 3 and 4 shards beside the unsharded run, in turns.
+18. figures  — the paper's Figs. 2-5 through ``repro_torch.figures`` at
+               ``Scale.paper()`` (configs/social_linear.py: n=10,000, m=64,
+               T=1,562; Fig. 5 m=4, 8, 16, 32 at the same total samples),
+               seeds 0-2, into a temporary store and output directory:
+               per figure one line with its rows, wall time, rounds/s and
+               the launches of each round kernel (counted from 0 before the
+               figure: every point's rounds plus its warm-up round, on the
+               path each point takes — sparse ``round_update``, or
+               ``dual_step`` for Fig. 3's complete and time_varying); the
+               rows finite, with the reference figures' keys and points in
+               their order; Fig. 2's per-(eps, seed) results equal phase
+               13's bit for bit (chunk 1,562 against 256); the derived
+               checks printed, not required.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line (time,
 bound, plain-version time and launches of every kernel), and last
@@ -1005,14 +1021,17 @@ AGREE_ROUNDS = 64
 
 
 def paper_spec(**kw):
-    """The paper's §V run (configs/social_linear.py at
-    benchmarks/common.py::Scale.paper) on the fused backend."""
+    """The paper's §V run, `repro_torch.configs.social_linear.CONFIG`, on
+    the fused backend (the Laplace mechanism in its per-coordinate
+    calibration, as the figures run it)."""
     from repro_torch import RunSpec
-    base = dict(nodes=MAIN_M, dim=MAIN_N, horizon=PAPER_T,
-                stream="social_sparse", mixer="ring", mechanism="laplace",
-                eps=1.0, calibration="coordinate", clip_norm=1.0,
-                alpha0=1.0, schedule="sqrt_t", lam=1e-3, seed=0,
-                backend="cuda")
+    from repro_torch.configs import social_linear
+    cfg = social_linear.CONFIG
+    base = dict(nodes=cfg.nodes, dim=cfg.n, horizon=cfg.rounds,
+                stream="social_sparse", mixer=cfg.topology,
+                mechanism="laplace", eps=cfg.eps, calibration="coordinate",
+                clip_norm=cfg.L, alpha0=cfg.alpha0, schedule=cfg.schedule,
+                lam=cfg.lam, seed=cfg.seed, backend="cuda")
     base.update(kw)
     return RunSpec(**base)
 
@@ -1715,7 +1734,7 @@ def sweep_phase(card: str) -> dict:
     log(f"fig2 sweep: {len(FIG2_EPS)} points x {len(BATCH_SEEDS)} seeds ran "
         f"in {ran_s:.1f} s (runs and store); reloaded from the store in "
         f"{load_s:.1f} s, nothing re-run, the same aggregates | {card}")
-    return {"ran_s": ran_s, "load_s": load_s}
+    return {"ran_s": ran_s, "load_s": load_s, "sweep": out}
 
 
 # -- 14-15. serving while learning, and telemetry ----------------------------
@@ -2424,8 +2443,20 @@ def shard_phase(main, fused, batch: dict, card: str) -> dict:
     _same_run(again, d4, "shard D=4: rerun")
     log(f"shard D=4: dist == sim and a rerun == the run, every field and "
         f"the final state bit for bit over {T} rounds | {card}")
+    diffs = _max_differences(d4, main)
     log(f"shard D=4 vs phase 4's unsharded run, all {T} rounds, max abs "
-        f"differences: {_max_differences(d4, main)} | {card}")
+        f"differences: {diffs} | {card}")
+    # the sharded ring adds each row in the unsharded ring's order, so the
+    # state and the exact fields are bit for bit; the metric sums (loss's
+    # w_bar term aside, w_bar_loss) add in shard order
+    for f in ("final_w", "correct", "sparsity", "eps_ledger"):
+        require(diffs[f] == 0.0, f"shard D=4 vs phase 4: {f} differs "
+                f"({_first_parting(d4, main)})")
+    for f in ("loss", "w_bar_loss"):
+        require(diffs[f] <= FLOAT_TOL, f"shard D=4 vs phase 4: {f} off by "
+                f"{diffs[f]}")
+    log(f"shard D=4: final_w, correct, sparsity and eps_ledger equal phase "
+        f"4's bit for bit over all {T} rounds | {card}")
     ref = run(spec.replace(backend="reference"),
               exec=cfg.replace(node_mesh=mesh[4]), device=DEVICE)
     # held as phase 5 holds the unsharded pair: final_w bit for bit, the
@@ -2476,11 +2507,16 @@ def shard_phase(main, fused, batch: dict, card: str) -> dict:
         require(sharded.privacy.get("participated_rounds")
                 == flat.privacy.get("participated_rounds"),
                 f"shard faults={name}: participation differs")
-    zero = run(spec.replace(horizon=AGREE_ROUNDS, faults="links",
-                            faults_options={"link_rate": 0.0}),
+    # zero rates: bit for bit the clean run of the ring a faulty mixer
+    # lowers to, the sparse edge list (ascending source; phase 11's pair)
+    sparse = spec.replace(horizon=AGREE_ROUNDS, mixer="sparse")
+    clean = run(sparse, exec=short.replace(node_mesh=mesh[4]),
+                device=DEVICE)
+    zero = run(sparse.replace(faults="links",
+                              faults_options={"link_rate": 0.0}),
                exec=short.replace(node_mesh=mesh[4]), device=DEVICE)
     for f in ("final_w", "loss", "correct", "w_bar_loss", "sparsity"):
-        require(np.array_equal(getattr(zero, f), getattr(runs64[4], f)),
+        require(np.array_equal(getattr(zero, f), getattr(clean, f)),
                 f"shard zero-rate links: {f} differs from the clean run")
     try:
         run(spec.replace(horizon=AGREE_ROUNDS, faults="dcn"),
@@ -2489,8 +2525,8 @@ def shard_phase(main, fused, batch: dict, card: str) -> dict:
     except ValueError as e:
         require("straggler" in str(e), f"shard dcn refusal: {e}")
     log(f"shard D=4 faults: links and crash (rate 0.05, 8 rounds) held to "
-        f"the unsharded runs; zero-rate links == clean bit for bit; dcn "
-        f"refused (stragglers) | {card}")
+        f"the unsharded runs; zero-rate links == the clean sparse ring bit "
+        f"for bit; dcn refused (stragglers) | {card}")
 
     # the seed axis: 2 seed shards (pad 1) == phase 12's batch; the grid
     _reset_shard_counts()
@@ -2565,6 +2601,146 @@ def shard_phase(main, fused, batch: dict, card: str) -> dict:
     return {"kernels": rows, "rounds_per_sec": rates}
 
 
+# -- 18. the paper's figures -------------------------------------------------
+
+FIGURE_SEEDS = (0, 1, 2)
+# the reference figures' row keys (benchmarks/fig2..fig5)
+FIGURE_KEYS = {
+    "fig2": ["regret_final", "regret_final_std", "regret_curve", "accuracy",
+             "accuracy_std", "seeds", "eps_total", "seconds"],
+    "fig3": ["regret_final", "regret_final_std", "accuracy", "accuracy_std",
+             "seeds", "seconds"],
+    "fig4": ["lambda", "sparsity", "sparsity_std", "accuracy",
+             "accuracy_std", "seeds", "seconds"],
+    "fig5": ["nodes", "horizon", "accuracy", "accuracy_std", "seeds",
+             "seconds"],
+}
+# the derived check each reference figure returns beside its rows
+FIGURE_CHECKS = {"fig2": "ordering_holds", "fig3": "spread",
+                 "fig4": "interior_best", "fig5": "declines"}
+
+
+def _figure_launches(out) -> dict:
+    """The round kernels' launches a figure's sweep must have made: each
+    point's rounds plus its warm-up round, once for a batch of its seeds or
+    once a seed where the sweep ran them one by one; round_update on its
+    sparse path, or dual_step where the mixer has no fixed sparse form."""
+    from repro_torch.api.runner import seed_vectorizable
+    from repro_torch.api.shard_node import sparse_graph_and_delay
+    want = {k: 0 for k in ("round_stats", "round_update",
+                           "round_update_sparse", "dual_step")}
+    for point in out.points:
+        spec = point.spec
+        runs = 1 if seed_vectorizable(spec, list(FIGURE_SEEDS)) \
+            else len(FIGURE_SEEDS)
+        rounds = runs * (spec.horizon + 1)
+        try:
+            sparse_graph_and_delay(spec.resolve_mixer())
+            fused = True
+        except ValueError:
+            fused = False
+        want["round_stats"] += rounds
+        for k in (("round_update", "round_update_sparse") if fused
+                  else ("dual_step",)):
+            want[k] += rounds
+    return want
+
+
+def _compact_rows(rows):
+    """A figure's rows for the log: each regret curve as its length."""
+    def short(row):
+        return {k: f"{len(v)} points" if k == "regret_curve" else v
+                for k, v in row.items()}
+    if isinstance(rows, dict):
+        return {k: short(v) for k, v in rows.items()}
+    return [short(r) for r in rows]
+
+
+def figures_phase(sweep13: dict, card: str) -> dict:
+    """Phase 18: the paper's Figs. 2-5 at the paper's scale through
+    `repro_torch.figures`, seeds 0-2, each figure's launches counted from 0
+    before it. Returns each figure's launches, wall and rounds/s."""
+    import tempfile
+    import numpy as np
+    from repro_torch.figures import (Scale, fig2_privacy, fig3_topology,
+                                     fig4_sparsity, fig5_nodes)
+    from repro_torch.kernels import round_fused as rf
+    scale = Scale.paper()
+    require((scale.n, scale.m, scale.T) == (MAIN_N, MAIN_M, PAPER_T),
+            f"figures: Scale.paper() is {scale}")
+    modules = {"fig2": fig2_privacy, "fig3": fig3_topology,
+               "fig4": fig4_sparsity, "fig5": fig5_nodes}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for fig, module in modules.items():
+            rf.reset_launches()
+            t0 = time.perf_counter()
+            res = module.run(scale, out_dir=tmp, seeds=FIGURE_SEEDS,
+                             device=DEVICE, store=f"{tmp}/store")
+            wall = time.perf_counter() - t0
+            launches = _launches()
+            sw = res["sweep"]
+            want = _figure_launches(sw)
+            # a batch's results share its loop time; seeds run one by one
+            # (a seeded mixer) each have their own
+            loop = sum(rs[0].metrics["batch"]["wall_clock_s"]
+                       if "batch" in rs[0].metrics
+                       else sum(r.wall_clock for r in rs)
+                       for rs in sw.results)
+            rounds = sum(r.rounds for rs in sw.results for r in rs)
+            log(f"{fig}: {len(sw.points)} points x {len(FIGURE_SEEDS)} seeds,"
+                f" wall {wall:.1f} s, {rounds} seed-rounds in "
+                f"{loop:.2f} s of round loops = {rounds / loop:.1f} "
+                f"seed-rounds/s; launches {launches} | {card}")
+            log(f"{fig} rows: {json.dumps(_compact_rows(res['rows']))} | "
+                f"{card}")
+            log(f"{fig} {FIGURE_CHECKS[fig]}: {res[FIGURE_CHECKS[fig]]} "
+                f"(printed, not required) | {card}")
+            require(launches == want, f"{fig}: launches {launches}, "
+                    f"expected {want}")
+            rows = res["rows"]
+            table = list(rows.values()) if isinstance(rows, dict) else rows
+            require(len(table) == len(sw.points), f"{fig}: {len(table)} rows")
+            for row in table:
+                require(list(row) == FIGURE_KEYS[fig],
+                        f"{fig}: row keys {list(row)}")
+                for k, v in row.items():
+                    if isinstance(v, (int, float)) and v is not None:
+                        require(math.isfinite(v), f"{fig}: {k} = {v}")
+                    elif isinstance(v, list):
+                        require(bool(np.isfinite(np.asarray(v, float)).all()),
+                                f"{fig}: {k} not finite")
+            out[fig] = {"launches": launches, "wall_s": wall,
+                        "seed_rounds_per_sec": rounds / loop, "result": res}
+    order = {
+        "fig2": [str(e) for e in fig2_privacy.EPS_SWEEP],
+        "fig3": list(fig3_topology.TOPOLOGIES),
+        "fig4": list(fig4_sparsity.LAMBDAS),
+        "fig5": list(fig5_nodes.NODE_SWEEP)}
+    got = {"fig2": list(out["fig2"]["result"]["rows"]),
+           "fig3": list(out["fig3"]["result"]["rows"]),
+           "fig4": [r["lambda"] for r in out["fig4"]["result"]["rows"]],
+           "fig5": [r["nodes"] for r in out["fig5"]["result"]["rows"]]}
+    require(got == order, f"figures: points {got}, expected {order}")
+    require([r["horizon"] for r in out["fig5"]["result"]["rows"]]
+            == [PAPER_T * MAIN_M // m for m in fig5_nodes.NODE_SWEEP],
+            "fig5: horizons")
+    # Fig. 2 is phase 13's sweep at one chunk of 1,562 rounds a run
+    # (phase 13: 256): the runner is chunk-size invariant
+    fig2, p13 = out["fig2"]["result"]["sweep"], sweep13["sweep"]
+    require([p.coords for p in fig2.points] == [p.coords for p in p13.points],
+            "fig2 vs phase 13: points differ")
+    for point, a_runs, b_runs in zip(fig2.points, fig2.results, p13.results):
+        for s, a, b in zip(FIGURE_SEEDS, a_runs, b_runs):
+            _same_run(a, b, f"fig2 {point.label()} seed {s} vs phase 13",
+                      ignore=("metrics",))
+    log(f"fig2: every (eps, seed) result equals phase 13's bit for bit "
+        f"(chunk 1,562 against 256) | {card}")
+    for fig in out:
+        out[fig].pop("result")
+    return out
+
+
 PATHS = {"round_stats": "main, serve", "round_update": "main, serve",
          "dual_step": "hybrid (phase 6, complete, time_varying, faults)",
          "pdomd_update": "ops", "hinge_grad": "ops"}
@@ -2573,6 +2749,10 @@ PATHS = {"round_stats": "main, serve", "round_update": "main, serve",
 def main() -> int:
     card, smi = card_check()
     import torch
+    from repro_torch.configs.social_linear import CONFIG
+    require((CONFIG.nodes, CONFIG.n, CONFIG.rounds)
+            == (MAIN_M, MAIN_N, PAPER_T),
+            "the kernels' shapes must be configs/social_linear.py's")
     build_phase()
     kernels = kernel_phase(card)
     batched = batch_kernel_phase(card)
@@ -2588,11 +2768,12 @@ def main() -> int:
     stages = stages_phase(card)
     faults = faults_phase(main_res, card)
     batch = batch_phase(main_res, card)
-    sweep_phase(card)
+    sweep13 = sweep_phase(card)
     serve = serve_phase(card)
     telemetry = telemetry_phase(card)
     runner = runner_phase(main_res, card)
     shard = shard_phase(main_res, fused, batch, card)
+    figures = figures_phase(sweep13, card)
     hybrid = {"hybrid": launches["dual_step"],
               **{name: run["launches"]["dual_step"]
                  for name, run in topologies.items()
@@ -2627,6 +2808,9 @@ def main() -> int:
         "round_update_sparse"]
     kernels["round_update"]["sparse_launches"] += serve["launches"][
         "round_update_sparse"]
+    for name in ROUND_KERNELS:
+        kernels[name]["figure_launches"] = {
+            fig: run["launches"][name] for fig, run in figures.items()}
     kernels["hinge_grad"]["slab_launches"] = launches["hinge_grad_slab"]
     for name, entry in shard["kernels"].items():
         entry["path"] = f"node-sharded, {entry['shards']} shards (phase 17)"

@@ -83,6 +83,7 @@ from repro_torch.api.runner import (BatchState, batch_init, chunk_loop,
                                     reference_chunk_program,
                                     reference_round_program, seed_state,
                                     stack_states)
+from repro_torch.kernels.round_fused import MAX_FUSED_NODES
 
 __all__ = ["BACKENDS", "ReferenceBackend", "CudaBackend"]
 
@@ -142,8 +143,8 @@ def _dense_mix_form(mixer, device: torch.device):
     but its weights change every round: it has no fixed form."""
     if getattr(mixer, "schedule", None) is not None:
         return None
-    from repro_torch.api.mixers import DelayedMixer, RingRollMixer
-    from repro_torch.api.shard_node import sparse_graph_and_delay
+    from repro_torch.api.mixers import DelayedMixer
+    from repro_torch.api.shard_node import mix_order, sparse_graph_and_delay
     from repro_torch.kernels.round_fused import MixCSR, sparse_mix
     try:
         graph, delay = sparse_graph_and_delay(mixer)
@@ -152,9 +153,9 @@ def _dense_mix_form(mixer, device: torch.device):
     A = torch.as_tensor(graph.to_dense(), dtype=torch.float32, device=device)
     diag = torch.as_tensor(graph.diag(), dtype=torch.float32, device=device)
     csr = sparse_mix(graph, device)
-    inner = mixer.inner if isinstance(mixer, DelayedMixer) else mixer
-    if csr is not None and isinstance(inner, RingRollMixer) and inner.m >= 3:
+    if csr is not None and mix_order(mixer) == "ring":
         # the kernel adds each row as the reference backend's ring does
+        inner = mixer.inner if isinstance(mixer, DelayedMixer) else mixer
         csr = MixCSR.ring_roll(inner.m, inner.self_weight, device)
     return A, diag, delay, csr
 
@@ -187,7 +188,7 @@ class CudaBackend:
     """
 
     mode: str = "auto"
-    max_fused_nodes: int = 1024
+    max_fused_nodes: int = MAX_FUSED_NODES
     name: str = "cuda"
 
     def __post_init__(self):
@@ -358,13 +359,16 @@ class CudaBackend:
         S seeds in step: per shard one ``round_stats`` launch on its (S,
         block, n) rows (w_bar over the global m) and one ``dual_step``
         after the sharded mix, the per-node algebra as torch ops with each
-        seed's reductions in a one-seed run's order; the noise is drawn
-        once a round per seed, as (m, n), zero-padded and sliced."""
+        seed's reductions in a one-seed run's order, the clip's norms from
+        the round's unsplit features on the row's first device (as the
+        unsharded round sums them); the noise is drawn once a round per
+        seed, as (m, n), zero-padded and sliced."""
         from repro_torch.api.clippers import (PerNodeL2Clipper, clip_factor,
                                               per_node_norms)
         from repro_torch.api.shard_node import (Blocks, _alive_blocks,
                                                 _masks, _mix_seed,
-                                                _noise_blocks, _pack, _psum,
+                                                _noise_blocks, _pack,
+                                                _pad_rows, _psum,
                                                 _sharded_mixer, _unpack)
         from repro_torch.core.algorithm1 import RoundOutput
         from repro_torch.core.prox import zero_fraction
@@ -389,7 +393,7 @@ class CudaBackend:
         ones = [torch.ones(part.block, dtype=torch.float32, device=dev)
                 for dev in devices]
 
-        def shard_stats(theta, x, y, ctx):
+        def shard_stats(theta, x, y, norms, ctx):
             dot, _, nnz, _, wsum = rf.round_stats(theta, x, ctx.lam_t, m,
                                                   prox_l1=prox_l1)
             margin = y * dot
@@ -398,17 +402,25 @@ class CudaBackend:
             active = (margin < 1.0).to(torch.float32)
             coeff = -(active * y)
             if clip_norm is not None:
-                coeff = coeff * clip_factor(
-                    active * _per_seed(per_node_norms, x), clip_norm)
+                coeff = coeff * clip_factor(active * norms, clip_norm)
             return coeff, loss, correct, wsum, nnz
 
         def round_fn(state, batch):
-            xb, yb = batch                 # Blocks of (S, block, n), (S, block)
+            # Blocks of (S, block, n) and (S, block); the unsplit (S, m, n)
+            xb, yb, x_global = batch
             theta, hist = _unpack(engine, state)
             t, S = state.t, len(state.generators)
             ctx = omd.step_context(t + 1)
-            stats = [shard_stats(th, x, y, ctx) for th, x, y in
-                     zip(theta.parts, xb.parts, yb.parts)]
+            # ||x|| of every node from the unsplit features, as the
+            # unsharded round sums it: a card's row sum takes another
+            # order at another row count, and an ulp moves theta
+            norms = _pad_rows(_per_seed(per_node_norms, x_global),
+                              part.m_pad - m, 1)
+            stats = [shard_stats(th, x, y, norms[:, d * part.block:
+                                                 (d + 1) * part.block]
+                                 .to(x.device), ctx)
+                     for d, (th, x, y) in enumerate(zip(
+                         theta.parts, xb.parts, yb.parts))]
             coeff, loss, correct, wsum, nnz = zip(*stats)
             # the metrics: per-shard partials, added in shard order
             w_bar = _psum(wsum, dev0) / m                      # (S, n)
@@ -450,6 +462,7 @@ def _reference() -> ReferenceBackend:
 
 
 @BACKENDS.register("cuda")
-def _cuda(mode: str = "auto", max_fused_nodes: int = 1024) -> CudaBackend:
+def _cuda(mode: str = "auto",
+          max_fused_nodes: int = MAX_FUSED_NODES) -> CudaBackend:
     """Fused round body on the hand-written Hopper kernels."""
     return CudaBackend(mode=mode, max_fused_nodes=max_fused_nodes)

@@ -66,7 +66,8 @@ from repro_torch.device import resolve_device, synchronize
 from repro_torch.metrics import CSVLogger, MetricTracker
 
 __all__ = ["run", "run_batch", "seed_vectorizable", "RunResult",
-           "BatchState", "make_chunk_program", "make_batch_chunk_program",
+           "BatchState", "make_chunk_fn", "make_chunk_program",
+           "make_batch_chunk_program",
            "reference_round_program", "reference_chunk_program",
            "reference_batch_chunk_program", "chunk_loop", "per_seed_round",
            "batch_init", "stack_states", "seed_state", "seed_rows_program"]
@@ -250,6 +251,16 @@ def make_chunk_program(spec: RunSpec, engine: str = "sim",
     """
     return spec.resolve_backend().make_chunk_program(
         spec, engine, resolve_device(device))
+
+
+def make_chunk_fn(spec: RunSpec, engine: str,
+                  device: str | torch.device | None = None):
+    """(chunk_fn, initial_state) for one engine — `make_chunk_program` with
+    the state built from ``spec.seed`` on ``device`` (None: the card).
+    Exposed so `launch.dryrun` measures the exact program `run` executes."""
+    chunk_fn, init_fn = make_chunk_program(spec, engine,
+                                           resolve_device(device))
+    return chunk_fn, init_fn(spec.seed)
 
 
 def make_batch_chunk_program(spec: RunSpec, engine: str = "sim",

@@ -14,9 +14,11 @@ centres — is split over the ("node",) axis of a `repro_torch.launch.mesh.Mesh`
   shard's device): for every used offset o != 0 it copies the block of
   shard (d + o) % D into a buffer on shard d's device (the halo exchange;
   offset 0 is local), then adds each row's weighted sources slot by slot
-  in ascending global source order with ``torch.addcmul`` — the order the
-  unsharded `SparseMixer` adds them in, no atomics, so a rerun is bit for
-  bit and sim == dist;
+  with ``torch.addcmul`` in the order the unsharded mix adds them
+  (`mix_order`: ascending global source for a `SparseMixer`, the ring's
+  roll order — self, i-1, i+1 — for a `RingRollMixer`), no atomics, so
+  the sharded run equals the unsharded one bit for bit in its state, a
+  rerun too, and sim == dist;
 * `make_node_chunk_fn` wraps the round loop of a chunk so that
   `repro_torch.run(exec=ExecConfig(node_devices=D))` and `run_batch`'s
   ("seed", "node") grid drive it like any other chunk program. State and
@@ -29,7 +31,11 @@ a round computes each shard's block on its device, and the metrics' sums
 first device. The per-round noise is the dense engines' draw: the full
 (m, n) sample from the run's generator, zero-padded to m_pad rows, each
 shard taking its block — so a sharded run differs from the unsharded one
-only by the reduction order of w_bar's column sums and the metric sums.
+only by the reduction order of w_bar's column sums and the metric sums
+(``w_bar_loss``), and on the cuda backend of ``round_stats``' per-node dot
+(the loss), which its kernel adds in an order set by the shard's row
+count; theta, ``correct`` and the integer-valued ``sparsity`` stay bit for
+bit unless a margin lies within an ulp of 0 or 1.
 
 >>> from repro_torch.api import RunSpec
 >>> from repro_torch.launch.mesh import make_mesh
@@ -62,9 +68,10 @@ from repro_torch.api.mixers import (DelayedMixer, DenseMatrixMixer,
 from repro_torch.core import tree
 from repro_torch.core.graph import SparseGraph, ring_edges
 
-__all__ = ["sparse_graph_and_delay", "NodePartition", "partition_graph",
-           "Blocks", "ShardedSparseMixer", "make_node_chunk_fn",
-           "resolve_node_mesh", "reference_local_round_fn"]
+__all__ = ["sparse_graph_and_delay", "mix_order", "NodePartition",
+           "partition_graph", "Blocks", "ShardedSparseMixer",
+           "make_node_chunk_fn", "resolve_node_mesh",
+           "reference_local_round_fn"]
 
 
 def sparse_graph_and_delay(mixer) -> tuple[Any, int]:
@@ -98,6 +105,20 @@ def sparse_graph_and_delay(mixer) -> tuple[Any, int]:
         "form (use mixer='sparse' with a ring/torus/... topology)")
 
 
+def mix_order(mixer) -> str:
+    """The order in which the unsharded mix adds each row's terms:
+    ``"ring"`` (self, then node i-1, then node i+1 — `RingRollMixer`'s
+    torch ops and `MixCSR.ring_roll`, m >= 3) or ``"ascending"`` (global
+    source order — `SparseMixer`, a dense stack's CSR form, a faulty
+    mixer). A sharded mix that adds in the same order rounds as the
+    unsharded one on every row, the ring's wrap-around rows 0 and m-1
+    included."""
+    inner = mixer.inner if isinstance(mixer, DelayedMixer) else mixer
+    if isinstance(inner, RingRollMixer) and inner.m >= 3:
+        return "ring"
+    return "ascending"
+
+
 @dataclasses.dataclass(frozen=True)
 class NodePartition:
     """Edges of a SparseGraph regrouped for a D-way contiguous row split.
@@ -108,7 +129,8 @@ class NodePartition:
     edges whose sources live on shard (d + o) % D, zero-padded to the
     widest shard (a weight-0 entry adds nothing). ``diag_blocks`` is the
     (D, block) self-weight table; padding rows m..m_pad-1 carry no edges
-    and weight 0.
+    and weight 0. ``order`` is the order in which each row's edges add
+    (`mix_order` of the unsharded mixer).
     """
 
     m: int
@@ -117,13 +139,19 @@ class NodePartition:
     m_pad: int           # block * devices
     offsets: tuple       # ((o, dst_local, src_local, weight), ...)
     diag_blocks: Any     # (D, block) float32
+    order: str = "ascending"   # "ascending" | "ring"
 
 
-def partition_graph(graph, devices: int) -> NodePartition:
-    """Split a SparseGraph's edges by destination shard and source offset."""
+def partition_graph(graph, devices: int,
+                    order: str = "ascending") -> NodePartition:
+    """Split a SparseGraph's edges by destination shard and source offset;
+    each row's edges add in ``order`` (`mix_order`)."""
     D = int(devices)
     if D < 1:
         raise ValueError(f"partition_graph needs devices >= 1, got {D}")
+    if order not in ("ascending", "ring"):
+        raise ValueError(f"unknown mix order {order!r}; expected 'ring' or "
+                         "'ascending'")
     m = int(graph.m)
     block = -(-m // D)
     m_pad = block * D
@@ -150,7 +178,7 @@ def partition_graph(graph, devices: int) -> NodePartition:
     diag[:m] = np.asarray(graph.diag(), np.float32)
     return NodePartition(m=m, devices=D, block=block, m_pad=m_pad,
                          offsets=tuple(offsets),
-                         diag_blocks=diag.reshape(D, block))
+                         diag_blocks=diag.reshape(D, block), order=order)
 
 
 class Blocks:
@@ -213,11 +241,10 @@ class Blocks:
 
 @dataclasses.dataclass(frozen=True)
 class _ShardEdges:
-    """One destination shard's edges in ascending (local row, global
-    source), grouped into slots (slot k: the k-th edge of every row that
-    has one) — the unsharded `SparseMixer`'s order, restricted to the
-    shard's rows. ``pos`` indexes the shard's halo buffer (offset index *
-    block + source row in its block)."""
+    """One destination shard's edges by local row, each row's in the
+    partition's ``order``, grouped into slots (slot k: the k-th edge of
+    every row that has one). ``pos`` indexes the shard's halo
+    buffer (offset index * block + source row in its block)."""
 
     dst: np.ndarray          # (E,) local destination row
     src_g: np.ndarray        # (E,) global source node
@@ -227,7 +254,7 @@ class _ShardEdges:
 
 
 def _shard_edges(part: NodePartition, d: int) -> _ShardEdges:
-    D, block = part.devices, part.block
+    D, block, m = part.devices, part.block, part.m
     cols = [[], [], [], []]
     for k, (o, dl, sl, ww) in enumerate(part.offsets):
         real = ww[d] != 0.0          # the zero-filled entries add nothing
@@ -237,12 +264,18 @@ def _shard_edges(part: NodePartition, d: int) -> _ShardEdges:
         cols[2].append(k * block + src)
         cols[3].append(ww[d][real])
     dst, src_g, pos, w = (np.concatenate(c) for c in cols)
-    order = np.lexsort((src_g, dst))
-    deg = np.bincount(dst[order], minlength=block)
+    if part.order == "ring":
+        # rank in the roll order: self 0, node i-1 1, node i+1 2
+        rel = (src_g - (d * block + dst)) % m
+        key = np.select([rel == 0, rel == m - 1], [0, 1], 2)
+    else:
+        key = src_g
+    perm = np.lexsort((key, dst))
+    deg = np.bincount(dst[perm], minlength=block)
     start = np.concatenate([[0], np.cumsum(deg)[:-1]]).astype(np.int64)
     rows = [np.flatnonzero(deg > k) for k in range(int(deg.max(initial=0)))]
-    return _ShardEdges(dst=dst[order], src_g=src_g[order], pos=pos[order],
-                       weight=w[order].astype(np.float32),
+    return _ShardEdges(dst=dst[perm], src_g=src_g[perm], pos=pos[perm],
+                       weight=w[perm].astype(np.float32),
                        slots=tuple((r, start[r] + k)
                                    for k, r in enumerate(rows)))
 
@@ -255,10 +288,11 @@ class ShardedSparseMixer(MixerBase):
     ``ShardedSparseMixer.halo_copies``; a peer copy when the two shards'
     devices differ, a copy on the card when they repeat it — never a
     view); offset 0 is copied from the shard's own block. Each row then
-    adds its weighted sources slot by slot (``torch.addcmul``) in ascending
-    global source order. ``mix``, ``mix_delayed`` and ``mix_history`` are
-    `MixerBase`'s, so noise placement and delay handling match the
-    unsharded mixers.
+    adds its weighted sources slot by slot (``torch.addcmul``) in the
+    partition's order (`mix_order` of the unsharded mixer: ascending global
+    source, or the ring's roll order). ``mix``, ``mix_delayed`` and
+    ``mix_history`` are `MixerBase`'s, so noise placement and delay
+    handling match the unsharded mixers.
     """
 
     halo_copies = 0
@@ -433,8 +467,9 @@ def reference_local_round_fn(spec, engine: str, part: NodePartition,
     backend's variant, via ``spec.resolve_backend()``).
 
     The round takes a `runner.BatchState` whose theta (and history ring)
-    are `Blocks` of (S, block, n) — S seeds in step — and (x, y) Blocks of
-    (S, block, n) and (S, block); it returns the next state and a
+    are `Blocks` of (S, block, n) — S seeds in step — and (x, y, x_global):
+    Blocks of (S, block, n) and (S, block), and the round's unsplit (S, m,
+    n) features on the row's first device; it returns the next state and a
     RoundOutput whose ``loss`` and ``correct`` are (S, block) Blocks and
     ``w_bar_loss`` and ``sparsity`` (S,) tensors on the row's first
     device. It mirrors `Algorithm1.round` term for term, seed by seed and
@@ -458,7 +493,7 @@ def reference_local_round_fn(spec, engine: str, part: NodePartition,
     masks = _masks(part, devices)
 
     def round_fn(state, batch):
-        xb, yb = batch
+        xb, yb, _ = batch
         theta, hist = _unpack(engine, state)
         t = state.t
         ctx = omd.step_context(t + 1)
@@ -546,7 +581,7 @@ def _row_program(round_fn: Callable, part: NodePartition, engine: str,
         xb, yb = split(xs, 2), split(ys, 2)
         outs = []
         for k in range(xs.shape[0]):
-            st, out = round_fn(st, (xb[k], yb[k]))
+            st, out = round_fn(st, (xb[k], yb[k], xs[k]))
             outs.append(out)
         fields = []
         for f in zip(*outs):
@@ -615,7 +650,7 @@ def make_node_chunk_fn(spec, engine: str, mesh,
     if int(graph.m) != int(spec.nodes):
         raise ValueError(f"graph has m={graph.m} nodes but RunSpec.nodes="
                          f"{spec.nodes}")
-    part = partition_graph(graph, D)
+    part = partition_graph(graph, D, order=mix_order(mixer))
     backend = spec.resolve_backend()
     rows = mesh.rows("node") if batched else mesh.rows("node")[:1]
     programs = [_row_program(backend.make_local_round_fn(

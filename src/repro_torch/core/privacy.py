@@ -6,22 +6,37 @@ Counterpart of `repro.core.privacy`:
   * per-round eps-DP (Lemma 2) + parallel composition across rounds
     (Theorem 1, valid because each round consumes disjoint stream entries).
 
+  * gradient clipping that enforces the bound ||g||_2 <= L the paper
+    assumes (Assumption 2.3): `clip_by_l2` on a whole pytree.
+
 Scales are host scalars computed in numpy float32 in the reference's order,
 so they equal the reference's jnp values bit for bit. Laplace draws use the
 same inverse-CDF transform of a uniform sample, drawn from an explicit
 `torch.Generator` in place of a `jax.random` key; the numbers differ from
 JAX's, so the tests compare by distribution or replay JAX's draws.
+
+>>> cfg = PrivacyConfig(eps=1.0, L=1.0, clip_style="coordinate")
+>>> float(cfg.scale_for(0.5, n=100))
+1.0
+>>> clipped, norm = clip_by_l2({"w": torch.tensor([3.0, 4.0])}, 1.0)
+>>> float(norm), clipped["w"].tolist()
+(5.0, [0.6000000238418579, 0.800000011920929])
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import operator
 from typing import Any
 
 import numpy as np
 import torch
 
+from repro_torch.core import tree
+
 __all__ = ["sensitivity", "laplace_scale", "sample_laplace",
+           "sample_laplace_tree", "clip_by_l2", "PrivacyConfig",
            "unit_laplace", "PrivacyAccountant"]
 
 f32 = np.float32
@@ -57,6 +72,66 @@ def sample_laplace(generator: torch.Generator, shape,
         return torch.zeros(shape, dtype=torch.float32,
                            device=generator.device)
     return float(scale) * unit_laplace(generator, shape)
+
+
+def sample_laplace_tree(generator: torch.Generator, params: Any, scale,
+                        dtype=None) -> Any:
+    """One independent Laplace(0, scale) sample per leaf of a pytree, drawn
+    from ``generator`` leaf after leaf in `core.tree`'s (JAX's) leaf order,
+    each of its leaf's shape, in ``dtype`` or the leaf's own."""
+    leaves, spec = tree.flatten(params)
+    return tree.unflatten(spec, [
+        sample_laplace(generator, tuple(leaf.shape), scale).to(
+            dtype or leaf.dtype) for leaf in leaves])
+
+
+def clip_by_l2(params: Any, max_norm: float) -> tuple[Any, torch.Tensor]:
+    """Scale the whole pytree so its global L2 norm is <= max_norm.
+
+    Enforces Assumption 2.3 (||g|| <= L); returns (clipped, pre-clip norm).
+    The leaves' sums of squares add in leaf order, the factor is a true
+    f32 division, as the reference's.
+    """
+    norm = torch.sqrt(functools.reduce(operator.add, [
+        torch.sum(torch.square(leaf.to(torch.float32)))
+        for leaf in tree.leaves(params)]))
+    bound = torch.full((), float(max_norm), dtype=torch.float32,
+                       device=norm.device)
+    factor = torch.clamp_max(bound / torch.clamp_min(norm, 1e-12), 1.0)
+    return tree.tree_map(lambda x: (x * factor).to(x.dtype), params), norm
+
+
+@dataclasses.dataclass(frozen=True)
+class PrivacyConfig:
+    """All knobs of the paper's privacy mechanism.
+
+    eps:        per-round privacy budget (paper sweeps 0.1 / 1 / 10 / inf).
+    L:          subgradient bound (Assumption 2.3), enforced by clipping.
+    noise_self: faithful default True — Algorithm 1 mixes the *noisy* theta
+                for every j including j == i. False is the beyond-paper
+                variant (own theta needs no network hop => no noise).
+    clip_style: 'global' = paper's Lemma 1 scale 2*alpha*sqrt(n)*L on the
+                whole vector; 'coordinate' = beyond-paper per-coordinate
+                sensitivity 2*alpha*L_inf (tighter when gradients are dense).
+    """
+
+    eps: float = 1.0
+    L: float = 1.0
+    noise_self: bool = True
+    clip_style: str = "global"
+
+    @property
+    def is_private(self) -> bool:
+        return not math.isinf(self.eps)
+
+    def scale_for(self, alpha_t, n: int) -> np.float32:
+        """The noise scale at step size ``alpha_t``, in numpy float32 (the
+        reference's jnp value bit for bit)."""
+        if not self.is_private:
+            return f32(0.0)
+        if self.clip_style == "coordinate":
+            return f32(2.0) * f32(alpha_t) * f32(self.L) / f32(self.eps)
+        return laplace_scale(alpha_t, n, self.L, self.eps)
 
 
 @dataclasses.dataclass

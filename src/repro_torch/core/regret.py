@@ -1,4 +1,4 @@
-"""Regret measurement (paper Definition 3), in torch.
+"""Regret measurement (paper Definition 3 + Theorem 2 bound), in torch.
 
 Counterpart of `repro.core.regret`:
 
@@ -11,10 +11,12 @@ on the device; the two full-batch products per step are ``torch.matmul``
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
-__all__ = ["best_fixed_hinge", "cumulative_regret"]
+__all__ = ["best_fixed_hinge", "cumulative_regret", "theorem2_bound"]
 
 
 def best_fixed_hinge(xs: torch.Tensor, ys: torch.Tensor, steps: int = 1500,
@@ -60,3 +62,20 @@ def cumulative_regret(per_round_wbar_loss, xs: torch.Tensor, ys: torch.Tensor,
     alg_loss = torch.as_tensor(per_round_wbar_loss, dtype=torch.float32,
                                device=xs.device) * m
     return torch.cumsum(alg_loss - star_loss, dim=0).cpu().numpy()
+
+
+def theorem2_bound(T: int, m: int, n: int, L: float, lam: float,
+                   R_diam: float, eps: float) -> float:
+    """Paper Eq. (17):  R <= R*sqrt((L+lam) m T L)
+    + (2*sqrt2 m^2 n T L / eps)(sqrt T - 1/2).
+
+    Host math in Python floats, term for term the reference's. Returned
+    for reporting: the noise term's constant is extremely loose for the
+    paper's own m and n.
+    """
+    s1 = R_diam * math.sqrt((L + lam) * m * T * L)
+    if math.isinf(eps):
+        return s1
+    s2 = (2.0 * math.sqrt(2.0) * m * m * n * T * L / eps) * (math.sqrt(T)
+                                                              - 0.5)
+    return s1 + s2

@@ -24,8 +24,8 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["SocialStream", "labels_from_logits", "round_seed",
-           "seeded_generator", "sparse_unit_w"]
+__all__ = ["SocialStream", "make_social_stream", "labels_from_logits",
+           "round_seed", "seeded_generator", "sparse_unit_w"]
 
 
 def labels_from_logits(logits: torch.Tensor) -> torch.Tensor:
@@ -102,3 +102,11 @@ class SocialStream:
         if flips:
             ys = torch.where(torch.stack(flips), -ys, ys)
         return xs, ys
+
+
+def make_social_stream(cfg, device: str = "cuda") -> SocialStream:
+    """From a `repro_torch.configs.social_linear.SocialLinearConfig`, its
+    rounds drawn on ``device``."""
+    return SocialStream(n=cfg.n, nodes=cfg.nodes, rounds=cfg.rounds,
+                        sparsity_true=cfg.sparsity_true, seed=cfg.seed,
+                        device=device)

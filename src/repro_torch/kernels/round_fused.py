@@ -78,6 +78,9 @@ _MAX_SEEDS = 65_535          # the seed is a grid axis (y or z)
 SPARSE_MAX_ROW_NNZ = 16
 # the sparse path's block holds all m rows of its column slab
 SPARSE_MAX_NODES = 2048
+# the cuda backend's dense-A cap for the fused mode (``max_fused_nodes``):
+# past it ``mode="auto"`` takes the hybrid path and ``"fused"`` raises
+MAX_FUSED_NODES = 1024
 
 
 @functools.lru_cache(maxsize=None)

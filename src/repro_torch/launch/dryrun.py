@@ -50,7 +50,7 @@ def dryrun_stream(stream: str, *, engine: str = "sim", nodes: int = 8,
     proves a declared scenario runs on either engine before you pay for
     the run. The round body is the fused kernels' (``backend="cuda"``)."""
     from repro_torch.api import RunSpec
-    from repro_torch.api.runner import _stream_chunk, make_chunk_program
+    from repro_torch.api.runner import _stream_chunk, make_chunk_fn
     from repro_torch.device import resolve_device, synchronize
     from repro_torch.obs import analyze_chunk, calibrate
 
@@ -59,8 +59,7 @@ def dryrun_stream(stream: str, *, engine: str = "sim", nodes: int = 8,
     spec = RunSpec(nodes=nodes, dim=dim, horizon=chunk_rounds, eps=1.0,
                    alpha0=0.5, lam=0.01, stream=stream,
                    stream_options=stream_options or {}, backend="cuda")
-    fn, init_fn = make_chunk_program(spec, engine, dev)
-    state = init_fn(spec.seed)
+    fn, state = make_chunk_fn(spec, engine, dev)
     xs, ys = _stream_chunk(spec.resolve_stream(device=dev), 0, 1, dev)
     before = None
     if dev.type == "cuda":

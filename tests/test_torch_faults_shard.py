@@ -10,8 +10,9 @@ tests/test_torch_faults.py does). The contract: ``correct``,
 rounds exact; ``final_w``, ``loss`` and ``w_bar_loss`` within 5e-6.
 Inside the port: a zero-rate scenario is bit for bit the clean sharded
 run; the faulty sharded run is within the contract of the faulty
-unsharded run (its mix adds each row as `FaultySparseMixer` does) and
-reruns bit for bit; stragglers and dense faulty mixers are refused.
+unsharded run (its mix adds each row as `FaultySparseMixer` does), bit for
+bit in its state over the paper's 1,562 rounds at m = 64, and reruns bit
+for bit; stragglers and dense faulty mixers are refused.
 """
 import dataclasses
 
@@ -24,7 +25,7 @@ import jax  # noqa: E402
 
 from repro.api import RunSpec as JRunSpec  # noqa: E402
 
-from repro_torch import ExecConfig, RunSpec, run  # noqa: E402
+from repro_torch import ExecConfig, RunSpec, run, run_batch  # noqa: E402
 from repro_torch.api.shard_node import Blocks, partition_graph  # noqa: E402
 from repro_torch.core.graph import ring_edges  # noqa: E402
 from repro_torch.faults import (FaultSchedule, FaultSpec,  # noqa: E402
@@ -171,6 +172,66 @@ def test_faulty_sharded_matches_faulty_unsharded(backend, engine):
     again = run(spec, engine=engine, exec=CFG.replace(node_devices=D),
                 device="cpu")
     assert_identical(sh, again, f"{backend}/{engine} rerun")
+
+
+# The paper's run (chip_smoke.paper_spec) at n = 96 on the `links` preset,
+# over its whole horizon.
+LONG = dict(nodes=64, dim=96, horizon=1562, stream="social_sparse",
+            mixer="ring", mechanism="laplace", eps=1.0,
+            calibration="coordinate", clip_norm=1.0, alpha0=1.0,
+            schedule="sqrt_t", lam=1e-3, faults="links")
+LONG_SEEDS = (0, 1, 2)
+LONG_CFG = ExecConfig(chunk_rounds=256, warmup=False, compute_regret=False)
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """One intra-op thread for the long runs: their tensors are small, and
+    idle pool threads spinning between ops starve parallel test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def long_unsharded(one_thread):
+    """backend -> the faulty unsharded runs of LONG at LONG_SEEDS."""
+    runs = {}
+
+    def get(backend):
+        if backend not in runs:
+            runs[backend] = [run(RunSpec(**LONG, seed=s, backend=backend),
+                                 exec=LONG_CFG, device="cpu")
+                             for s in LONG_SEEDS]
+        return runs[backend]
+
+    return get
+
+
+@pytest.mark.parametrize("shards", [4, 3])
+@pytest.mark.parametrize("backend", list(PAIRS))
+def test_faulty_sharded_ring_equals_unsharded_over_the_paper_horizon(
+        long_unsharded, backend, shards):
+    """m = 64 under link drops on 4 shards and on 3 (two pad rows), 1,562
+    rounds, seeds 0-2 as one sharded batch: ``final_w``, ``correct``,
+    ``sparsity``, ``eps_ledger`` and ``connectivity`` bit for bit the
+    faulty unsharded run's (both add each row in
+    ascending source, as `FaultySparseMixer` does); ``loss`` and
+    ``w_bar_loss`` within 5e-6."""
+    sharded = run_batch(RunSpec(**LONG, backend=backend), LONG_SEEDS,
+                        exec=LONG_CFG.replace(node_devices=shards),
+                        device="cpu")
+    for seed, plain, sh in zip(LONG_SEEDS, long_unsharded(backend), sharded):
+        what = f"{backend} seed {seed} on {shards} shards"
+        for f in ("final_w",) + EXACT:
+            np.testing.assert_array_equal(
+                np.asarray(getattr(sh, f)), np.asarray(getattr(plain, f)),
+                err_msg=f"{what}: {f} must be bit for bit")
+        for f in ("loss", "w_bar_loss"):
+            d = np.abs(np.asarray(getattr(sh, f))
+                       - np.asarray(getattr(plain, f))).max()
+            assert d <= ATOL, f"{what}: {f} off by {d} (> {ATOL})"
 
 
 def test_faulty_sharded_mixer_is_row_stochastic_with_padding():

@@ -298,3 +298,99 @@ def test_lm_production_meshes_raise_naming_item_5(name, args):
     from repro_torch.launch import mesh
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
         getattr(mesh, name)(*args)
+
+
+def _public(module) -> set:
+    """The names a module defines for its users: its ``__all__``, or (the
+    reference's `repro.configs` has none) its public functions and
+    constants that were not imported from elsewhere."""
+    import types
+    if hasattr(module, "__all__"):
+        return set(module.__all__)
+    return {name for name, v in vars(module).items()
+            if not name.startswith("_") and not isinstance(v, types.ModuleType)
+            and getattr(v, "__module__", module.__name__) == module.__name__}
+
+
+# package -> the reference's names the port does not carry, and why
+_LEFT_OUT = {
+    "core": set(),
+    "data": {"TokenStream", "lm_batches"},            # queue 1 item 5: LM
+    "kernels": {"LANE", "SUBLANE", "DEFAULT_BLOCK_COLS"},  # TPU tiling
+    "configs": set(),
+    "configs.social_linear": set(),
+}
+
+
+@pytest.mark.parametrize("package", list(_LEFT_OUT))
+def test_paper_path_packages_export_the_reference_names(package):
+    """`__all__` of core, data, kernels and configs is the reference's but
+    for the LM stack's names (ROADMAP queue 1 item 5) and the TPU tiling
+    constants; every exported name resolves."""
+    import importlib
+    mine = importlib.import_module(f"repro_torch.{package}")
+    ref = importlib.import_module(f"repro.{package}")
+    assert set(mine.__all__) == _public(ref) - _LEFT_OUT[package]
+    if hasattr(ref, "__all__"):
+        assert list(mine.__all__) == [n for n in ref.__all__
+                                      if n not in _LEFT_OUT[package]]
+    assert all(hasattr(mine, name) for name in mine.__all__)
+
+
+def test_core_names_import_from_the_package():
+    from repro_torch.core import (Algorithm1, GossipDP, GossipState,
+                                  OnlineMirrorDescent, PrivacyConfig)
+    from repro_torch.core import algorithm1, gossip, omd, privacy
+    assert Algorithm1 is algorithm1.Algorithm1
+    assert (GossipDP, GossipState) == (gossip.GossipDP, gossip.GossipState)
+    assert OnlineMirrorDescent is omd.OnlineMirrorDescent
+    assert PrivacyConfig is privacy.PrivacyConfig
+    with pytest.raises(AttributeError, match="no attribute"):
+        repro_torch.core.TokenStream
+
+
+def test_kernels_export_the_round_kernels_and_the_port_s_bound():
+    import repro_torch.kernels as kernels
+    from repro_torch.api.backends import CudaBackend
+    for name in ("round_stats", "round_update", "dual_step"):
+        assert getattr(kernels, name) is getattr(rf, name)
+    assert kernels.MAX_FUSED_NODES == CudaBackend().max_fused_nodes == 1024
+    assert BACKENDS.build("cuda").max_fused_nodes == kernels.MAX_FUSED_NODES
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "qwen3-32b"])
+def test_lm_configs_raise_naming_item_5(arch):
+    """`configs` lists the reference's architecture ids; the paper's
+    workload resolves, an LM architecture raises naming its item."""
+    import repro.configs as jconfigs
+    from repro_torch import configs
+    assert configs.ARCH_IDS == jconfigs.ARCH_IDS
+    assert configs.PAPER_WORKLOAD == jconfigs.PAPER_WORKLOAD
+    assert configs.get_config(configs.PAPER_WORKLOAD) is \
+        configs.social_linear.CONFIG
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
+        configs.get_config(arch)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
+        configs.all_configs()
+
+
+@pytest.mark.parametrize("engine", ["sim", "dist"])
+def test_make_chunk_fn_is_the_program_run_executes(engine):
+    """`make_chunk_fn` returns the chunk program and the state of
+    ``spec.seed``: one chunk over the horizon equals `run` bit for bit, and
+    the runner exports it as the reference's runner does."""
+    import repro.api.runner as jrunner
+    from repro_torch.api import runner
+    assert "make_chunk_fn" in runner.__all__ and \
+        "make_chunk_fn" in jrunner.__all__
+    spec = RunSpec(**SPEC, backend="cuda")
+    chunk_fn, state = runner.make_chunk_fn(spec, engine, device="cpu")
+    assert state.t == 0
+    xs, ys = spec.resolve_stream(device="cpu").chunk(0, spec.horizon)
+    state, outs = chunk_fn(state, xs, ys)
+    res = run(spec, engine=engine, exec=CFG, device="cpu")
+    np.testing.assert_array_equal(outs.loss.numpy(), res.loss)
+    np.testing.assert_array_equal(outs.correct.numpy(), res.correct)
+    assert state.t == spec.horizon
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        runner.make_chunk_fn(spec, engine)

@@ -42,8 +42,8 @@ from repro_torch import ExecConfig, RunSpec, run, run_batch  # noqa: E402
 from repro_torch.api.mixers import (MIXERS, DelayedMixer,  # noqa: E402
                                     RingRollMixer, SparseMixer)
 from repro_torch.api.shard_node import (Blocks, ShardedSparseMixer,  # noqa: E402
-                                        make_node_chunk_fn, partition_graph,
-                                        resolve_node_mesh,
+                                        make_node_chunk_fn, mix_order,
+                                        partition_graph, resolve_node_mesh,
                                         sparse_graph_and_delay)
 from repro_torch.checkpoint import save_checkpoint  # noqa: E402
 from repro_torch.convert import state_from_jax  # noqa: E402
@@ -284,6 +284,97 @@ def test_sharded_mixer_adds_as_the_sparse_mixer(shards):
     assert torch.equal(got[12:], torch.zeros_like(got[12:]))
     used = sum(1 for o, *_ in part.offsets if o)
     assert ShardedSparseMixer.halo_copies == used * shards
+
+
+@pytest.mark.parametrize("shards", [1, 2, 3, 4, 5])
+def test_sharded_ring_adds_as_the_ring_roll_mixer(shards):
+    """A ring sharded in `mix_order`'s ring order adds each row as
+    `RingRollMixer` does (self, then i-1, then i+1), bit for bit on every
+    row — the wrap-around rows 0 and m-1 and the rows at shard boundaries
+    too — where ascending source order parts on the wrap-around rows."""
+    m = 64
+    ring = RingRollMixer(m=m)
+    assert mix_order(ring) == "ring"
+    assert mix_order(DelayedMixer(inner=ring, delay=2)) == "ring"
+    assert mix_order(SparseMixer(graph=ring_edges(m))) == "ascending"
+    assert mix_order(RingRollMixer(m=2)) == "ascending"
+    graph = sparse_graph_and_delay(ring)[0]
+    part = partition_graph(graph, shards, order=mix_order(ring))
+    x = torch.from_numpy(np.random.default_rng(shards).standard_normal(
+        (m, 96)).astype(np.float32))
+    xp = torch.cat([x, torch.zeros(part.m_pad - m, 96)])
+    blocks = Blocks(xp[d * part.block:(d + 1) * part.block]
+                    for d in range(shards))
+    want = ring.apply(x, 0)
+    got = torch.cat(ShardedSparseMixer(part, devices=("cpu",) * shards)
+                    .apply(blocks, 0).parts)
+    assert torch.equal(got[:m], want)
+    asc = torch.cat(ShardedSparseMixer(partition_graph(graph, shards),
+                                       devices=("cpu",) * shards)
+                    .apply(blocks, 0).parts)
+    assert torch.equal(asc[1:m - 1], want[1:m - 1])
+    assert not torch.equal(asc[:m], want)
+    with pytest.raises(ValueError, match="mix order"):
+        partition_graph(graph, shards, order="random")
+
+
+# The paper's run (chip_smoke.paper_spec) at n = 96, over its whole horizon.
+LONG = dict(nodes=64, dim=96, horizon=1562, stream="social_sparse",
+            mixer="ring", mechanism="laplace", eps=1.0,
+            calibration="coordinate", clip_norm=1.0, alpha0=1.0,
+            schedule="sqrt_t", lam=1e-3)
+LONG_SEEDS = (0, 1, 2)
+LONG_CFG = ExecConfig(chunk_rounds=256, warmup=False, compute_regret=False)
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """One intra-op thread for the long runs: their tensors are small, and
+    idle pool threads spinning between ops starve parallel test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def long_unsharded(one_thread):
+    """backend -> the unsharded runs of LONG at LONG_SEEDS (made once)."""
+    runs = {}
+
+    def get(backend):
+        if backend not in runs:
+            runs[backend] = [run(RunSpec(**LONG, seed=s, backend=backend),
+                                 exec=LONG_CFG, device="cpu")
+                             for s in LONG_SEEDS]
+        return runs[backend]
+
+    return get
+
+
+@pytest.mark.parametrize("shards", [4, 3])
+@pytest.mark.parametrize("backend", list(PAIRS))
+def test_sharded_ring_equals_the_unsharded_ring_over_the_paper_horizon(
+        long_unsharded, backend, shards):
+    """m = 64 on 4 shards (block 16) and 3 (block 22, two pad rows), 1,562
+    rounds, seeds 0-2 as one sharded batch: ``final_w``, ``correct``,
+    ``sparsity`` and ``eps_ledger`` bit for bit the unsharded run's in
+    every round — the sharded ring adds each row in the unsharded ring's
+    roll order — and ``loss`` and ``w_bar_loss`` within 5e-6 (the metric
+    sums add in shard order)."""
+    sharded = run_batch(RunSpec(**LONG, backend=backend), LONG_SEEDS,
+                        exec=LONG_CFG.replace(node_devices=shards),
+                        device="cpu")
+    for seed, plain, sh in zip(LONG_SEEDS, long_unsharded(backend), sharded):
+        what = f"{backend} seed {seed} on {shards} shards"
+        for f in ("final_w",) + EXACT:
+            np.testing.assert_array_equal(
+                np.asarray(getattr(sh, f)), np.asarray(getattr(plain, f)),
+                err_msg=f"{what}: {f} must be bit for bit")
+        for f in ("loss", "w_bar_loss"):
+            d = np.abs(np.asarray(getattr(sh, f))
+                       - np.asarray(getattr(plain, f))).max()
+            assert d <= ATOL, f"{what}: {f} off by {d} (> {ATOL})"
 
 
 def test_a_halo_is_a_copy_never_a_view():
