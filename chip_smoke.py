@@ -197,6 +197,35 @@ Phases (any failure raises, and the script exits non-zero):
                their order; Fig. 2's per-(eps, seed) results equal phase
                13's bit for bit (chunk 1,562 against 256); the derived
                checks printed, not required.
+19. ablations — the two ablations through ``repro_torch.figures`` at
+               ``Scale.paper()``, seeds 0-2, into a temporary store and
+               output directory, the launches counted from 0 before each:
+               the sparse methods (omd on the fused kernels: one batch,
+               1,562 + 1 launches of each round kernel; truncated gradient
+               and RDA on the reference backend: none), rows finite with
+               the reference's labels and keys in order; the delay
+               ablation at delays 0, 1, 4, 16, 64 on both engines (every
+               point 1,563 launches of ``round_stats`` and sparse
+               ``round_update``, its ``use_recv`` branch past delay 0), the
+               dist run equal to the sim run in final_w, correct, sparsity
+               and eps_ledger bit for bit at every delay and seed; the
+               launches per delay, wall, seed-rounds/s and ``graceful``
+               printed.
+20. LM stack  — (a) each of the ten architectures at ``reduced()`` in f32:
+               apply and loss on the card equal to the port's CPU result
+               (1e-4 / 1e-5), token-by-token decode equal to apply (5e-3),
+               one AdamW step of ``repro_torch.optim`` finite; (b) qwen2-7b
+               at its full published config in bf16 (15.2 GB of weights):
+               prefill through ``apply(last_only=True)`` at B = 1, T =
+               2,048 (full attention, 28 calls) and 4,096 (blockwise, held
+               to the full path at the same T), then 64 tokens of
+               ``decode_step`` against ``apply`` over them (max |delta
+               logit| and top-1 agreement within the bf16 bounds below);
+               prefill and decode tokens/s and peak memory printed; (c)
+               mixtral-8x7b at full width, 2 of 32 layers, bf16, capacity
+               factor 1.25 (drops live, counted): apply, loss and backward,
+               five AdamW steps on one batch (B = 2, T = 512), the loss
+               falling; step time and peak memory printed.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line (time,
 bound, plain-version time and launches of every kernel), and last
@@ -2624,13 +2653,16 @@ def _figure_launches(out) -> dict:
     """The round kernels' launches a figure's sweep must have made: each
     point's rounds plus its warm-up round, once for a batch of its seeds or
     once a seed where the sweep ran them one by one; round_update on its
-    sparse path, or dual_step where the mixer has no fixed sparse form."""
+    sparse path, or dual_step where the mixer has no fixed sparse form; a
+    point on the reference backend none."""
     from repro_torch.api.runner import seed_vectorizable
     from repro_torch.api.shard_node import sparse_graph_and_delay
     want = {k: 0 for k in ("round_stats", "round_update",
                            "round_update_sparse", "dual_step")}
     for point in out.points:
         spec = point.spec
+        if spec.backend != "cuda":
+            continue            # the ablation's tg / rda: torch ops only
         runs = 1 if seed_vectorizable(spec, list(FIGURE_SEEDS)) \
             else len(FIGURE_SEEDS)
         rounds = runs * (spec.horizon + 1)
@@ -2741,6 +2773,503 @@ def figures_phase(sweep13: dict, card: str) -> dict:
     return out
 
 
+# -- 19. the two ablations ---------------------------------------------------
+
+# the reference ablations' row keys (benchmarks/ablation_*.py)
+SPARSE_KEYS = ["accuracy", "accuracy_std", "sparsity", "sparsity_std",
+               "seeds"]
+SPARSE_LABELS = ["omd (paper)", "truncated-gradient [11]", "rda [12]"]
+DELAY_KEYS = ["delay", "accuracy", "accuracy_std", "accuracy_distributed",
+              "seeds"]
+DELAY_BENCH_KEYS = ["delay", "accuracy", "regret_final", "regret_final_std",
+                    "regret_per_round", "simulator_seconds",
+                    "distributed_seconds"]
+
+
+def _per_point_launches(fn):
+    """``fn()`` with the round kernels' launches recorded around each
+    sweep point the sweep engine runs: (fn's result, [(label, engine,
+    launches), ...])."""
+    from repro_torch.sweep import engine as sweep_engine
+    real, seen = sweep_engine._run_point, []
+
+    def counted(point, spec, **kw):
+        before = _launches()
+        out = real(point, spec, **kw)
+        after = _launches()
+        seen.append((point.label(), spec.engine,
+                     {k: after[k] - before[k] for k in after}))
+        return out
+
+    sweep_engine._run_point = counted
+    try:
+        return fn(), seen
+    finally:
+        sweep_engine._run_point = real
+
+
+def _finite_rows(what: str, rows, keys: list) -> None:
+    for row in rows:
+        require(list(row) == keys, f"{what}: row keys {list(row)}")
+        for k, v in row.items():
+            if isinstance(v, (int, float)) and v is not None:
+                require(math.isfinite(v), f"{what}: {k} = {v}")
+
+
+def ablations_phase(card: str) -> dict:
+    """Phase 19: the two ablations at the paper's scale through
+    `repro_torch.figures`, seeds 0-2, into a temporary store and output
+    directory, each with the launches counted from 0 before it. Returns
+    each ablation's launches, wall and seed-rounds/s."""
+    import tempfile
+    import numpy as np
+    from repro_torch.figures import Scale, ablation_delay, \
+        ablation_sparse_methods
+    from repro_torch.kernels import round_fused as rf
+    scale = Scale.paper()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(out_dir=tmp, seeds=FIGURE_SEEDS, device=DEVICE,
+                  store=f"{tmp}/store")
+        # -- Lasso-OMD against truncated gradient and RDA
+        rf.reset_launches()
+        t0 = time.perf_counter()
+        res, points = _per_point_launches(
+            lambda: ablation_sparse_methods.run(scale, **kw))
+        wall = time.perf_counter() - t0
+        launches, sw = _launches(), res["sweep"]
+        for label, _, n in points:
+            log(f"ablation_sparse_methods {label}: launches {n} | {card}")
+        log(f"ablation_sparse_methods: {len(sw.points)} points x "
+            f"{len(FIGURE_SEEDS)} seeds, wall {wall:.1f} s; launches "
+            f"{launches} | {card}")
+        log(f"ablation_sparse_methods rows: {json.dumps(res['rows'])} | "
+            f"{card}")
+        want = _figure_launches(sw)
+        require(launches == want, f"ablation_sparse_methods: launches "
+                f"{launches}, expected {want}")
+        require(want["round_stats"] == scale.T + 1,
+                f"ablation_sparse_methods: omd's batch should launch "
+                f"{scale.T + 1} times, expected {want}")
+        require(list(res["rows"]) == SPARSE_LABELS,
+                f"ablation_sparse_methods: rows {list(res['rows'])}")
+        _finite_rows("ablation_sparse_methods", res["rows"].values(),
+                     SPARSE_KEYS)
+        out["ablation_sparse_methods"] = {"launches": launches,
+                                          "wall_s": wall}
+
+        # -- delayed gossip on both engines
+        rf.reset_launches()
+        t0 = time.perf_counter()
+        res, points = _per_point_launches(
+            lambda: ablation_delay.run(scale, delays=ablation_delay.DELAYS,
+                                       **kw))
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        sim, dist = res["sim"], res["dist"]
+        for label, engine, n in points:
+            log(f"ablation_delay {label} {engine}: launches {n} "
+                f"(round_update {n['round_update']}) | {card}")
+            require(n["round_update"] == n["round_update_sparse"]
+                    == n["round_stats"] == scale.T + 1 and
+                    n["dual_step"] == 0, f"ablation_delay {label} {engine}: "
+                    f"launches {n}, expected {scale.T + 1} of round_stats "
+                    "and sparse round_update")
+        want = {k: a + b for (k, a), b in zip(
+            _figure_launches(sim).items(), _figure_launches(dist).values())}
+        require(launches == want, f"ablation_delay: launches {launches}, "
+                f"expected {want}")
+        for point, sim_rs, dist_rs in zip(sim.points, sim.results,
+                                          dist.results):
+            for s, a, b in zip(FIGURE_SEEDS, sim_rs, dist_rs):
+                for f in ("final_w", "correct", "sparsity", "eps_ledger"):
+                    require(np.array_equal(np.asarray(getattr(a, f)),
+                                           np.asarray(getattr(b, f))),
+                            f"ablation_delay {point.label()} seed {s}: "
+                            f"dist {f} differs from sim")
+        rounds = sum(r.rounds for rs in sim.results + dist.results
+                     for r in rs)
+        loop = sum(rs[0].metrics["batch"]["wall_clock_s"]
+                   for rs in sim.results + dist.results)
+        log(f"ablation_delay: sim == dist in final_w, correct, sparsity and "
+            f"eps_ledger bit for bit at delays {list(ablation_delay.DELAYS)}"
+            f", seeds {list(FIGURE_SEEDS)} | {card}")
+        log(f"ablation_delay: {len(sim.points)} delays x 2 engines x "
+            f"{len(FIGURE_SEEDS)} seeds, wall {wall:.1f} s, {rounds} "
+            f"seed-rounds in {loop:.2f} s of round loops = "
+            f"{rounds / loop:.1f} seed-rounds/s; launches {launches} | "
+            f"{card}")
+        log(f"ablation_delay rows: {json.dumps(res['rows'])} | {card}")
+        log(f"ablation_delay bench: {json.dumps(res['bench']['rows'])} | "
+            f"{card}")
+        log(f"ablation_delay graceful: {res['graceful']} (printed, not "
+            f"required) | {card}")
+        require([r["delay"] for r in res["rows"]]
+                == list(ablation_delay.DELAYS), "ablation_delay: delays")
+        _finite_rows("ablation_delay", res["rows"], DELAY_KEYS)
+        _finite_rows("ablation_delay bench", res["bench"]["rows"],
+                     DELAY_BENCH_KEYS)
+        files = sorted(p.name for p in Path(tmp).iterdir() if p.is_file())
+        require(files == ["BENCH_delay.json", "ablation_delay.json",
+                          "ablation_sparse_methods.json"],
+                f"ablations: files {files}")
+        out["ablation_delay"] = {"launches": launches, "wall_s": wall,
+                                 "seed_rounds_per_sec": rounds / loop,
+                                 "per_point": points}
+    return out
+
+
+# -- 20. the LM stack --------------------------------------------------------
+
+LM_B, LM_T = 2, 16          # the CPU tests' batch
+LM_LOGIT_TOL = 1e-4         # card vs CPU, f32 (the CPU tests' bounds)
+LM_LOSS_TOL = 1e-5
+LM_DECODE_TOL = 5e-3        # decode vs apply (tests/test_models.py:67-68)
+QWEN = "qwen2-7b"
+QWEN_PREFILL = (2048, 4096)  # the full-attention path, the blockwise path
+QWEN_DECODE = 64
+# decode vs apply in bf16 (PERF.md §6): max |delta logit| within
+# 16 * 2^-8 of the largest |logit|, the same top-1 token at 3/4 of the
+# positions or more
+QWEN_BF16_REL = 16 * 2 ** -8
+QWEN_TOP1 = 0.75
+MIXTRAL = "mixtral-8x7b"
+MIXTRAL_LAYERS = 2          # of 32: the depth is the one cut
+MIXTRAL_B, MIXTRAL_T = 2, 512
+MIXTRAL_STEPS = 5
+MIXTRAL_LR = 1e-3
+
+
+def _lm_config(arch: str, **kw):
+    """``arch``'s published config (fields in ``kw`` replaced)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), **kw)
+
+
+def _lm_batch(cfg, seed: int = 7) -> dict:
+    """The CPU tests' batch (tests/test_torch_models.py::make_batch)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (LM_B, LM_T)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, (LM_B, LM_T)).astype(np.int32)
+    batch = {"tokens": tokens, "labels": labels}
+    if cfg.frontend == "vision":
+        batch["frontend"] = rng.standard_normal(
+            (LM_B, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+        batch["labels"][:, :cfg.frontend_tokens] = -1
+    elif cfg.family == "encdec":
+        batch["frontend"] = rng.standard_normal(
+            (LM_B, max(LM_T // 4, 8), cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _decode_all(model, params, tokens, frontend=None):
+    """Token-by-token decode logits (B, T, V) over ``tokens``."""
+    import torch
+    B, T = tokens.shape
+    cache = model.init_cache(B, cache_len=T)
+    if model.prime_cache is not None:
+        cache = model.prime_cache(params, cache, frontend)
+    outs = []
+    for i in range(T):
+        logits, cache = model.decode_step(
+            params, cache, tokens[:, i:i + 1],
+            torch.full((B,), i, dtype=torch.int32, device=tokens.device))
+        outs.append(logits)
+    return torch.cat(outs, dim=1)
+
+
+def _grads(model, params, batch):
+    """(loss, gradients as a list in `tree_leaves` order)."""
+    import torch
+    from repro_torch.core.tree import leaves as tree_leaves, tree_map
+    leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, _ = model.loss_fn(leaves, batch)
+    return loss.detach(), list(torch.autograd.grad(loss,
+                                                   tree_leaves(leaves)))
+
+
+def lm_reduced_phase(card: str) -> dict:
+    """Phase 20a: every architecture at its reduced config, f32 (TF32 off):
+    apply and loss on the card equal the port's CPU result; token-by-token
+    decode equals apply; one AdamW step gives finite parameters."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import build_model
+    from repro_torch.core.tree import leaves as tree_leaves, tree_map
+    out = {}
+    for arch in ARCH_IDS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch).reduced()
+        cpu, card_model = build_model(cfg, "cpu"), build_model(cfg, DEVICE)
+        params = cpu.init(0)
+        gparams = tree_map(lambda t: t.to(DEVICE), params)
+        nb = _lm_batch(cfg)
+        batch = {k: torch.from_numpy(v) for k, v in nb.items()}
+        gbatch = {k: v.to(DEVICE) for k, v in batch.items()}
+        with torch.no_grad():
+            want, want_aux = cpu.apply(params, batch["tokens"],
+                                       batch.get("frontend"))
+            got, aux = card_model.apply(gparams, gbatch["tokens"],
+                                        gbatch.get("frontend"))
+            want_loss, _ = cpu.loss_fn(params, batch)
+            loss, _ = card_model.loss_fn(gparams, gbatch)
+            front = gbatch.get("frontend") if cfg.family == "encdec" \
+                else None
+            full, _ = card_model.apply(gparams, gbatch["tokens"], front)
+            dec = _decode_all(card_model, gparams, gbatch["tokens"], front)
+        d_logits = float((got.cpu() - want).abs().max())
+        d_loss = abs(float(loss) - float(want_loss))
+        d_aux = abs(float(aux) - float(want_aux))
+        d_dec = float((dec - full).abs().max())
+        opt = optim.adamw(optim.constant(1e-3))
+        state = opt.init(gparams)
+        loss_g, grads = _grads(card_model, gparams, gbatch)
+        it = iter(grads)
+        upd, state = opt.update(tree_map(lambda _: next(it), gparams),
+                                state, gparams)
+        stepped = optim.apply_updates(gparams, upd)
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in tree_leaves(stepped))
+        secs = time.perf_counter() - t0
+        log(f"lm {arch} reduced ({cfg.num_layers}L d{cfg.d_model}, f32): "
+            f"card vs CPU logits {d_logits:.3g}, loss {d_loss:.3g}, aux "
+            f"{d_aux:.3g}; decode vs apply {d_dec:.3g}; AdamW step finite "
+            f"{finite} (loss {float(loss_g):.4f}); {secs:.1f} s | {card}")
+        require(tuple(got.shape) == (LM_B, LM_T, cfg.vocab_padded),
+                f"lm {arch}: logits shape {tuple(got.shape)}")
+        require(d_logits <= LM_LOGIT_TOL, f"lm {arch}: card logits off the "
+                f"CPU's by {d_logits}")
+        require(d_loss <= LM_LOSS_TOL and d_aux <= LM_LOSS_TOL,
+                f"lm {arch}: loss off by {d_loss}, aux by {d_aux}")
+        require(d_dec <= LM_DECODE_TOL, f"lm {arch}: decode off apply by "
+                f"{d_dec}")
+        require(finite, f"lm {arch}: an AdamW step gave a non-finite leaf")
+        out[arch] = {"logits": d_logits, "loss": d_loss, "decode": d_dec,
+                     "seconds": secs}
+    return out
+
+
+def _count_calls(module, name: str, counts: dict):
+    """Wrap ``module.name`` to count its calls into ``counts[name]``;
+    returns the undo."""
+    real = getattr(module, name)
+    counts[name] = 0
+
+    def counted(*a, **kw):
+        counts[name] += 1
+        return real(*a, **kw)
+
+    setattr(module, name, counted)
+    return lambda: setattr(module, name, real)
+
+
+def _param_bytes(params) -> int:
+    from repro_torch.core.tree import leaves as tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(params))
+
+
+def qwen_phase(card: str) -> dict:
+    """Phase 20b: qwen2-7b at its full published config (bf16, nothing
+    cut): prefill through ``apply(last_only=True)`` at B = 1, T = 2,048
+    (full attention) and 4,096 (blockwise; held to the full-attention
+    path at the same T), then 64 tokens of `decode_step` against `apply`
+    over them."""
+    import torch
+    from repro_torch.device import synchronize
+    from repro_torch.models import attention, build_model
+    dev = torch.device(DEVICE)
+    cfg = _lm_config(QWEN)
+    model = build_model(cfg, DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0)
+    synchronize(dev)
+    init_s = time.perf_counter() - t0
+    nbytes = _param_bytes(params)
+    log(f"lm {QWEN}: {cfg.num_layers}L d{cfg.d_model} {cfg.num_heads}/"
+        f"{cfg.kv_heads} heads d_ff {cfg.d_ff} vocab {cfg.vocab_size} "
+        f"{cfg.dtype}: {nbytes / 1e9:.2f} GB of weights, init {init_s:.1f} s"
+        f" | {card}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = {"weights_gb": nbytes / 1e9, "prefill": {}}
+    with torch.inference_mode():
+        for T in QWEN_PREFILL:
+            tokens = torch.randint(0, cfg.vocab_size, (1, T), generator=gen,
+                                   device=dev)
+            model.apply(params, tokens, last_only=True)      # warm-up
+            counts, undo = {}, []
+            for name in ("_full_attention", "_blockwise_attention"):
+                undo.append(_count_calls(attention, name, counts))
+            try:
+                synchronize(dev)
+                t0 = time.perf_counter()
+                logits, _ = model.apply(params, tokens, last_only=True)
+                synchronize(dev)
+                secs = time.perf_counter() - t0
+            finally:
+                for u in undo:
+                    u()
+            path = "full" if T <= attention.BLOCKWISE_THRESHOLD \
+                else "blockwise"
+            require(counts[f"_{path}_attention"] == cfg.num_layers and
+                    sum(counts.values()) == cfg.num_layers,
+                    f"lm {QWEN} prefill T={T}: attention calls {counts}, "
+                    f"expected {cfg.num_layers} on the {path} path")
+            require(tuple(logits.shape) == (1, 1, cfg.vocab_padded) and
+                    bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()),
+                    f"lm {QWEN} prefill T={T}: logits not finite")
+            row = {"seconds": secs, "tokens_per_s": T / secs, "path": path}
+            if path == "blockwise":
+                # the same prefill through the full-attention path
+                threshold = attention.BLOCKWISE_THRESHOLD
+                attention.BLOCKWISE_THRESHOLD = T
+                try:
+                    ref, _ = model.apply(params, tokens, last_only=True)
+                finally:
+                    attention.BLOCKWISE_THRESHOLD = threshold
+                real = slice(0, cfg.vocab_size)
+                d = float((logits[..., real] - ref[..., real]).abs().max())
+                top = float(ref[..., real].abs().max())
+                row.update(vs_full=d, max_logit=top,
+                           top1_same=bool(logits[..., real].argmax()
+                                          == ref[..., real].argmax()))
+                require(d <= QWEN_BF16_REL * top, f"lm {QWEN} T={T}: "
+                        f"blockwise off the full path by {d} (bound "
+                        f"{QWEN_BF16_REL * top})")
+            out["prefill"][T] = row
+            log(f"lm {QWEN} prefill B=1 T={T} ({path} attention, "
+                f"{counts}): {secs * 1e3:.1f} ms = {T / secs:.1f} tokens/s"
+                + (f"; last logits vs the full-attention path max |delta| "
+                   f"{row['vs_full']:.4g} (largest |logit| "
+                   f"{row['max_logit']:.4g}), top-1 same "
+                   f"{row['top1_same']}" if "vs_full" in row else "")
+                + f" | {card}")
+        tokens = torch.randint(0, cfg.vocab_size, (1, QWEN_DECODE),
+                               generator=gen, device=dev)
+        full, _ = model.apply(params, tokens)
+        _decode_all(model, params, tokens[:, :2])          # warm-up
+        synchronize(dev)
+        t0 = time.perf_counter()
+        dec = _decode_all(model, params, tokens)
+        synchronize(dev)
+        dec_s = time.perf_counter() - t0
+    real = slice(0, cfg.vocab_size)
+    d = float((dec[..., real] - full[..., real]).abs().max())
+    top = float(full[..., real].abs().max())
+    top1 = float((dec[..., real].argmax(-1) == full[..., real].argmax(-1))
+                 .float().mean())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out.update(decode_tokens_per_s=QWEN_DECODE / dec_s, decode_vs_apply=d,
+               max_logit=top, top1=top1, peak_gb=peak)
+    log(f"lm {QWEN} decode {QWEN_DECODE} tokens (B=1): {dec_s:.2f} s = "
+        f"{QWEN_DECODE / dec_s:.1f} tokens/s; vs apply over the same tokens:"
+        f" max |delta logit| {d:.4g} (largest |logit| {top:.4g}, bound "
+        f"{QWEN_BF16_REL * top:.4g}), top-1 same at {top1:.4f} of positions "
+        f"(bound {QWEN_TOP1}); peak memory {peak:.2f} GB | {card}")
+    require(bool(torch.isfinite(dec[..., real]).all()),
+            f"lm {QWEN}: decode logits not finite")
+    require(d <= QWEN_BF16_REL * top, f"lm {QWEN}: decode off apply by {d}")
+    require(top1 >= QWEN_TOP1, f"lm {QWEN}: top-1 agreement {top1}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def mixtral_phase(card: str) -> dict:
+    """Phase 20c: mixtral-8x7b at full width, 2 of its 32 layers, bf16,
+    capacity factor 1.25 (drops live): apply, loss and backward, then five
+    AdamW steps on one fixed batch (B = 2, T = 512); the loss must fall.
+    The optimizer runs leaf by leaf (each leaf its own one-leaf tree and
+    state: the whole tree's update, leaf for leaf), so that only one
+    leaf's new moments exist beside the old ones."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.device import synchronize
+    from repro_torch.models import build_model, moe
+    from repro_torch.core.tree import leaves as tree_leaves, tree_map
+    dev = torch.device(DEVICE)
+    cfg = _lm_config(MIXTRAL, num_layers=MIXTRAL_LAYERS,
+                     moe_capacity_factor=1.25)
+    model = build_model(cfg, DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (MIXTRAL_B, MIXTRAL_T),
+                              generator=gen, device=dev)
+             for k in ("tokens", "labels")}
+    kept = []
+    real = moe._dispatch
+
+    def counted(top_idx, E, C):
+        res = real(top_idx, E, C)
+        kept.append((int(res[-1].sum()), res[-1].numel(), C))
+        return res
+
+    moe._dispatch = counted
+    try:
+        with torch.no_grad():
+            logits, aux = model.apply(params, batch["tokens"])
+    finally:
+        moe._dispatch = real
+    require(bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()) and
+            bool(torch.isfinite(aux)), f"lm {MIXTRAL}: apply not finite")
+    require(len(kept) == cfg.num_layers and any(k < n for k, n, _ in kept),
+            f"lm {MIXTRAL}: no assignment dropped at capacity 1.25 ({kept})")
+    log(f"lm {MIXTRAL}: {cfg.num_layers} of "
+        f"{_lm_config(MIXTRAL).num_layers} layers at full width "
+        f"(d{cfg.d_model}, {cfg.num_experts} experts top-"
+        f"{cfg.num_experts_per_tok}, d_ff {cfg.d_ff}), bf16, "
+        f"{_param_bytes(params) / 1e9:.2f} GB of weights; apply B="
+        f"{MIXTRAL_B} T={MIXTRAL_T}: kept/assigned per layer "
+        f"{[(k, n) for k, n, _ in kept]} at capacity {kept[0][2]} | {card}")
+    opt = optim.adamw(optim.constant(MIXTRAL_LR))
+    nbytes = _param_bytes(params)
+    leaves, skeleton = tree_leaves(params), tree_map(lambda _: 0, params)
+    del params, logits
+    states = [opt.init({"p": t}) for t in leaves]
+    losses, times = [], []
+    for _ in range(MIXTRAL_STEPS + 1):
+        synchronize(dev)
+        t0 = time.perf_counter()
+        it = iter(leaves)
+        loss, grads = _grads(model, tree_map(lambda _: next(it), skeleton),
+                             batch)
+        losses.append(float(loss))
+        if len(losses) > MIXTRAL_STEPS:
+            break
+        for i, g in enumerate(grads):
+            upd, states[i] = opt.update({"p": g}, states[i],
+                                        {"p": leaves[i]})
+            leaves[i] = optim.apply_updates({"p": leaves[i]}, upd)["p"]
+            grads[i] = upd = None
+        synchronize(dev)
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"lm {MIXTRAL}: loss over {MIXTRAL_STEPS} AdamW steps (lr "
+        f"{MIXTRAL_LR}) {[round(v, 4) for v in losses]}; step (loss, "
+        f"backward, update) {[round(t * 1e3, 1) for t in times]} ms; peak "
+        f"memory {peak:.2f} GB | {card}")
+    require(all(math.isfinite(v) for v in losses), f"lm {MIXTRAL}: loss "
+            "not finite")
+    require(losses[-1] < losses[0], f"lm {MIXTRAL}: loss did not fall "
+            f"({losses})")
+    del leaves, states
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": [t * 1e3 for t in times],
+            "peak_gb": peak, "kept": kept, "weights_gb": nbytes / 1e9}
+
+
+def lm_phase(card: str) -> dict:
+    """Phase 20: the LM stack (see 20a, 20b, 20c)."""
+    return {"reduced": lm_reduced_phase(card), "qwen": qwen_phase(card),
+            "mixtral": mixtral_phase(card)}
+
+
 PATHS = {"round_stats": "main, serve", "round_update": "main, serve",
          "dual_step": "hybrid (phase 6, complete, time_varying, faults)",
          "pdomd_update": "ops", "hinge_grad": "ops"}
@@ -2774,6 +3303,8 @@ def main() -> int:
     runner = runner_phase(main_res, card)
     shard = shard_phase(main_res, fused, batch, card)
     figures = figures_phase(sweep13, card)
+    ablations = ablations_phase(card)
+    lm_phase(card)
     hybrid = {"hybrid": launches["dual_step"],
               **{name: run["launches"]["dual_step"]
                  for name, run in topologies.items()
@@ -2811,6 +3342,8 @@ def main() -> int:
     for name in ROUND_KERNELS:
         kernels[name]["figure_launches"] = {
             fig: run["launches"][name] for fig, run in figures.items()}
+        kernels[name]["ablation_launches"] = {
+            ab: run["launches"][name] for ab, run in ablations.items()}
     kernels["hinge_grad"]["slab_launches"] = launches["hinge_grad_slab"]
     for name, entry in shard["kernels"].items():
         entry["path"] = f"node-sharded, {entry['shards']} shards (phase 17)"

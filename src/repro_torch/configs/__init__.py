@@ -1,12 +1,15 @@
 """repro_torch.configs — the registry of `repro.configs`.
 
-The paper's own workload, `social_linear` (``PAPER_WORKLOAD``), is ported.
-The assigned LM architectures (``ARCH_IDS``) are the LM stack, ROADMAP
-queue 1 item 5: their ids are listed as the reference lists them, and
-``get_config`` of one raises naming that item.
+One module per assigned architecture (``ARCH_IDS``), each the reference's
+exact published numbers as a `repro_torch.models.ModelConfig`;
+``get_config(id).reduced()`` gives the CPU smoke-test variant of the same
+family. The paper's own workload, `social_linear` (``PAPER_WORKLOAD``), is
+the linear model the figures run.
 
 >>> get_config(PAPER_WORKLOAD).nodes
 64
+>>> get_config("qwen2-7b").d_model
+3584
 """
 from __future__ import annotations
 
@@ -32,19 +35,13 @@ PAPER_WORKLOAD = "social-linear"
 
 
 def get_config(arch_id: str):
-    """The config of ``arch_id``: `social_linear.CONFIG` for the paper's
-    workload; an LM architecture raises NotImplementedError."""
-    if arch_id in ARCH_IDS:
-        raise NotImplementedError(
-            f"the LM architecture {arch_id!r} is not ported yet (ROADMAP "
-            "queue 1 item 5); the port runs the paper's workload, "
-            f"{PAPER_WORKLOAD!r}")
+    """The config of ``arch_id``: a `ModelConfig` for an LM architecture,
+    `social_linear.CONFIG` for the paper's workload."""
     mod = importlib.import_module(
         f"repro_torch.configs.{arch_id.replace('-', '_')}")
     return mod.CONFIG
 
 
 def all_configs() -> dict:
-    """Every assigned architecture's config — the LM stack, so this raises
-    NotImplementedError naming ROADMAP queue 1 item 5."""
+    """Every assigned architecture's config, by id."""
     return {a: get_config(a) for a in ARCH_IDS}

@@ -14,6 +14,13 @@ The JAX PRNG key is not carried: the two frameworks draw different numbers
 from the same key, so the port's noise generator is seeded from ``seed``
 (pass the run's ``RunSpec.seed``).
 
+`model_params_from_jax` turns the parameters of a reference LM
+(`repro.models.build_model(cfg).init(key)`), flattened to numpy arrays
+keyed by their pytree paths (``"layers/attn/wq/w"``, and ``"layers/0/..."``
+for a per-layer list), into the port's nested dicts on ``device``, each
+leaf in the dtype the port's own init gives it (bf16 arrays may come as
+float32 numpy, which holds every bf16 value exactly).
+
 `snapshot_from_jax` turns a reference serving snapshot
 (`repro.serve.Snapshot`, or a mapping of its fields) into the port's
 `repro_torch.serve.Snapshot` on ``device``: the same version, round and
@@ -30,7 +37,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["state_from_jax", "snapshot_from_jax"]
+__all__ = ["state_from_jax", "snapshot_from_jax", "model_params_from_jax"]
 
 
 def _nested(flat: dict[str, torch.Tensor]):
@@ -120,3 +127,51 @@ def snapshot_from_jax(snapshot, device: str | torch.device = "cuda"):
                     theta=tensor(fields["theta"]), w=w,
                     w_bar=tensor(fields["w_bar"]),
                     eps_spent=float(fields["eps_spent"]))
+
+
+def _tree_of_paths(flat: Mapping[str, np.ndarray]):
+    """Nested dicts from ``a/b/c``-keyed leaves; a level whose keys are all
+    integers becomes a list (the reference's per-layer list)."""
+    out: dict = {}
+    for key, value in flat.items():
+        parts = key.split("/")
+        node = out
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+    return lists(out)
+
+
+def model_params_from_jax(cfg, params: Mapping[str, np.ndarray],
+                          device: str | torch.device = "cuda"):
+    """The port's parameters of ``cfg``'s model holding a reference
+    model's: ``params`` maps each pytree path to its array. The keys and
+    shapes must be those of the port's init (checked); each leaf takes the
+    port's dtype for it."""
+    from repro_torch.core.tree import flatten_with_path, tree_map
+    from repro_torch.models import build_model
+    want = build_model(cfg, device="meta").init(0)
+    got = _tree_of_paths(params)
+    dev = resolve_device(device)
+
+    def leaf(w: torch.Tensor, a) -> torch.Tensor:
+        a = np.array(a, np.float32 if w.is_floating_point() else None)
+        if tuple(a.shape) != tuple(w.shape):
+            raise ValueError(f"shape {a.shape}, the port's is "
+                             f"{tuple(w.shape)}")
+        return torch.from_numpy(a).to(device=dev, dtype=w.dtype)
+
+    paths = {p for p, _ in flatten_with_path(want)}
+    given = {p for p, _ in flatten_with_path(got)}
+    if paths != given:
+        raise ValueError(
+            f"not {cfg.name}'s parameters: missing {sorted(paths - given)}, "
+            f"unexpected {sorted(given - paths)}")
+    return tree_map(leaf, want, got)

@@ -1,19 +1,23 @@
-"""The paper's four figure datasets on the port, at a chosen scale.
+"""The paper's four figure datasets and the two ablations on the port, at
+a chosen scale.
 
     python -m repro_torch.figures --smoke --device cpu   # seconds, CPU
     python -m repro_torch.figures --paper                # §V scale, card
     python -m repro_torch.figures --paper --from-store   # JSONs, no run
 
 Counterpart of ``examples/private_social_training.py`` (and of the figure
-rows of ``benchmarks/run.py``): prints each figure's rows and derived
-check, and writes ``fig2_privacy_coordinate.json``, ``fig3_topology.json``,
-``fig4_sparsity.json`` and ``fig5_nodes.json`` under ``--out``.
+and ablation rows of ``benchmarks/run.py``): prints each figure's rows and
+derived check, and writes ``fig2_privacy_coordinate.json``,
+``fig3_topology.json``, ``fig4_sparsity.json``, ``fig5_nodes.json``,
+``ablation_sparse_methods.json``, ``ablation_delay.json`` and
+``BENCH_delay.json`` under ``--out``.
 """
 from __future__ import annotations
 
 import argparse
 
-from repro_torch.figures import (fig2_privacy, fig3_topology, fig4_sparsity,
+from repro_torch.figures import (ablation_delay, ablation_sparse_methods,
+                                 fig2_privacy, fig3_topology, fig4_sparsity,
                                  fig5_nodes)
 from repro_torch.figures.common import FIGURES, STORE, Scale
 
@@ -66,8 +70,24 @@ def main(argv: list[str] | None = None) -> dict:
     for row in r5["rows"]:
         print(f"  m={row['nodes']:3d}: acc={row['accuracy']:.3f}")
     print("  declines with m:", r5["declines"])
+
+    print("\n[Ablation] sparse online learning methods")
+    ra = ablation_sparse_methods.run(scale, **kw)
+    for name, row in ra["rows"].items():
+        print(f"  {name:26s} acc={row['accuracy']:.3f} "
+              f"sparsity={row['sparsity']:.3f}")
+
+    print("\n[Ablation] gossip delay")
+    rd = ablation_delay.run(scale, delays=(ablation_delay.SMOKE_DELAYS
+                                           if args.smoke
+                                           else ablation_delay.DELAYS), **kw)
+    for row in rd["bench"]["rows"]:
+        print(f"  delay={row['delay']:3d}: acc={row['accuracy']:.3f} "
+              f"regret/T={row['regret_per_round']:.4f}")
+    print("  graceful degradation:", rd["graceful"])
     print(f"\nfigure data written to {args.out}/")
-    return {"fig2": r2, "fig3": r3, "fig4": r4, "fig5": r5}
+    return {"fig2": r2, "fig3": r3, "fig4": r4, "fig5": r5,
+            "ablation_sparse_methods": ra, "ablation_delay": rd}
 
 
 if __name__ == "__main__":

@@ -18,7 +18,8 @@
   12 ulps of final_w at |w| 7.67 — 5.72e-6, past the absolute 5e-6: the
   consensus mix hands every node's drift to every node (the reference's
   own two backends agree there bit for bit).
-* Both packages' figure modules run once: the JSON file names, row keys and point
+* Both packages' figure modules run once (the port's CLI runs the two
+  ablations after them): the JSON file names, row keys and point
   order are the reference's; ``from_store=True`` rewrites each JSON
   unchanged without a run; a store holding the reference's records of the
   same figure serves the port nothing (`SweepStoreMiss`).
@@ -181,9 +182,17 @@ def _load(path):
 
 
 def test_the_figures_write_the_reference_files(figure_runs):
-    assert sorted(p.name for p in figure_runs["port_out"].iterdir()) == \
-        sorted(p.name for p in figure_runs["ref_out"].iterdir()) == \
+    """The CLI writes each figure's file as the reference's figures do,
+    and then the two ablations' (tests/test_torch_ablations.py holds
+    those to the reference)."""
+    ablations = ["BENCH_delay.json", "ablation_delay.json",
+                 "ablation_sparse_methods.json"]
+    assert sorted(p.name for p in figure_runs["ref_out"].iterdir()) == \
         sorted(f for _, _, f, _ in FIGS.values())
+    assert sorted(p.name for p in figure_runs["port_out"].iterdir()) == \
+        sorted([f for _, _, f, _ in FIGS.values()] + ablations)
+    assert {"ablation_sparse_methods", "ablation_delay"} <= \
+        set(figure_runs["results"])
 
 
 @pytest.mark.parametrize("fig", list(FIGS))

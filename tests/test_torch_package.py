@@ -358,20 +358,66 @@ def test_kernels_export_the_round_kernels_and_the_port_s_bound():
     assert BACKENDS.build("cuda").max_fused_nodes == kernels.MAX_FUSED_NODES
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "qwen3-32b"])
-def test_lm_configs_raise_naming_item_5(arch):
-    """`configs` lists the reference's architecture ids; the paper's
-    workload resolves, an LM architecture raises naming its item."""
-    import repro.configs as jconfigs
+import repro.configs as _jconfigs  # noqa: E402
+
+
+def _fields(cfg) -> dict:
+    import dataclasses
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
+@pytest.mark.parametrize("arch", _jconfigs.ARCH_IDS)
+def test_lm_configs_equal_the_reference(arch):
+    """`configs` lists the reference's architecture ids, and each one's
+    config is the reference's field for field (the paper's workload still
+    resolves to `social_linear.CONFIG`)."""
     from repro_torch import configs
-    assert configs.ARCH_IDS == jconfigs.ARCH_IDS
-    assert configs.PAPER_WORKLOAD == jconfigs.PAPER_WORKLOAD
+    from repro_torch.models import ModelConfig
+    assert configs.ARCH_IDS == _jconfigs.ARCH_IDS
+    assert configs.PAPER_WORKLOAD == _jconfigs.PAPER_WORKLOAD
     assert configs.get_config(configs.PAPER_WORKLOAD) is \
         configs.social_linear.CONFIG
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
-        configs.get_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
-        configs.all_configs()
+    mine, ref = configs.get_config(arch), _jconfigs.get_config(arch)
+    assert isinstance(mine, ModelConfig)
+    assert _fields(mine) == _fields(ref)
+    assert (mine.vocab_padded, mine.kv_heads, mine.dims_per_head,
+            mine.rnn_width, mine.is_subquadratic) == \
+        (ref.vocab_padded, ref.kv_heads, ref.dims_per_head, ref.rnn_width,
+         ref.is_subquadratic)
+    assert str(mine.tdtype).split(".")[-1] == str(ref.jdtype)
+
+
+@pytest.mark.parametrize("arch", _jconfigs.ARCH_IDS)
+def test_lm_reduced_configs_equal_the_reference(arch):
+    """``reduced()`` — the size every CPU test runs — is the reference's
+    field for field, with its defaults and with other sizes."""
+    from repro_torch import configs
+    mine, ref = configs.get_config(arch), _jconfigs.get_config(arch)
+    assert _fields(mine.reduced()) == _fields(ref.reduced())
+    kw = dict(layers=3, d_model=128, d_ff=96, vocab=300, experts=2)
+    assert _fields(mine.reduced(**kw)) == _fields(ref.reduced(**kw))
+
+
+def test_all_configs_equal_the_reference():
+    from repro_torch import configs
+    mine, ref = configs.all_configs(), _jconfigs.all_configs()
+    assert list(mine) == list(ref) == configs.ARCH_IDS
+    assert all(_fields(mine[a]) == _fields(ref[a]) for a in ref)
+
+
+@pytest.mark.parametrize("package", ["models", "optim"])
+def test_lm_packages_export_the_reference_names(package):
+    """`repro_torch.models` and `repro_torch.optim` export the reference's
+    `__all__`, in its order, and every name resolves."""
+    import importlib
+    mine = importlib.import_module(f"repro_torch.{package}")
+    ref = importlib.import_module(f"repro.{package}")
+    assert mine.__all__ == ref.__all__
+    assert all(hasattr(mine, name) for name in mine.__all__)
+    from repro.models.config import INPUT_SHAPES
+    from repro_torch.models import INPUT_SHAPES as mine_shapes
+    assert {k: vars(v) for k, v in mine_shapes.items()} == \
+        {k: vars(v) for k, v in INPUT_SHAPES.items()}
 
 
 @pytest.mark.parametrize("engine", ["sim", "dist"])
