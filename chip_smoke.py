@@ -226,6 +226,25 @@ Phases (any failure raises, and the script exits non-zero):
                factor 1.25 (drops live, counted): apply, loss and backward,
                five AdamW steps on one batch (B = 2, T = 512), the loss
                falling; step time and peak memory printed.
+21. LM train/serve — (a) ``launch.train.train`` of minicpm-2b at
+               ``reduced()`` in f32, eps = inf, 3 steps of each strategy,
+               from one CPU-made state on one token stream, on the card
+               and on the CPU: states, losses and metrics within 1e-5;
+               (b) minicpm-2b at its published width in bf16, 8 of 40
+               layers, 4 ring nodes x batch 2 x T = 512: 5 gossip steps at
+               eps = 1 and 5 at eps = inf (one batch on every node, the
+               nodes' theta equal bit for bit under deterministic
+               algorithms) through ``make_gossip_train_step`` and run()'s
+               custom mode, then 5 all-reduce AdamW steps; losses finite,
+               noise scale > 0 iff private, sparsity in [0, 1], the eps
+               ledger; step time, tokens/s and peak memory printed; (c)
+               ``launch.serve_lm.serve`` of qwen2-7b at its full config
+               (batch 4, prompt 32, 16 tokens, cache 128): tokens (4, 17)
+               in the vocabulary, the first generated token the prefill
+               step's argmax where the top-2 gap is clear of the bf16
+               bound; prefill at B = 1, T = 2,048 with head_pad=16 within
+               the bound of the plain one, the same argmax, and the
+               placement-only context managers bit for bit.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line (time,
 bound, plain-version time and launches of every kernel), and last
@@ -3270,6 +3289,394 @@ def lm_phase(card: str) -> dict:
             "mixtral": mixtral_phase(card)}
 
 
+# -- 21. LM train and serve ------------------------------------------------
+
+LM_TRAIN_TOL = 1e-5         # card vs CPU state, loss and metrics (f32)
+LM_TRAIN_STEPS = 3
+MINICPM = "minicpm-2b"
+MINICPM_LAYERS = 8          # of 40: the depth is the one cut
+MINICPM_NODES, MINICPM_B, MINICPM_T = 4, 2, 512
+MINICPM_STEPS = 5
+MINICPM_LAM = 1e-5
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_CACHE = 4, 32, 16, 128
+PREFILL_T = 2048
+PREFILL_PAD = 16            # 28 heads -> 32 (4 kv groups of 7 -> 8)
+
+
+def _state_to(state, dev):
+    """A train state's tensors moved to ``dev``; a gossip state's noise
+    generator re-seeded there (eps = inf: it draws nothing)."""
+    import torch
+    from repro_torch.core import tree
+    from repro_torch.launch.steps import GossipTrainState
+    if isinstance(state, GossipTrainState):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        g = state.gossip
+        return GossipTrainState(gossip=g._replace(
+            theta=tree.tree_map(lambda t: t.to(dev), g.theta),
+            generator=gen))
+    return tree.tree_map(lambda t: t.to(dev), state)
+
+
+def _state_leaves(state) -> dict:
+    """{path: tensor} of a train state's tensors (the generator aside)."""
+    import torch
+    from repro_torch.core import tree
+    return {k: v for k, v in tree.flatten_with_path(state)
+            if isinstance(v, torch.Tensor)}
+
+
+def lm_card_vs_cpu(card: str) -> dict:
+    """Phase 21a: `launch.train.train` of minicpm-2b at ``reduced()`` in
+    f32, eps = inf, both strategies, from one CPU-made state and on one
+    token stream (drawn on the host), on the card and on the CPU: the
+    final states, losses and metrics within LM_TRAIN_TOL."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import build_model
+    cfg = get_config(MINICPM).reduced()
+    cpu_model = build_model(cfg, "cpu")
+    recipe = steps_lib.TrainRecipe(eps=math.inf)
+    starts = {
+        "gossip": steps_lib.make_gossip_init(
+            cpu_model, steps_lib.make_gossip_dp(4, recipe), 4)(0),
+        "allreduce": steps_lib.make_allreduce_train_step(
+            cpu_model, recipe)[1](0)}
+    out = {}
+    for strategy, start in starts.items():
+        runs = {}
+        for dev in (DEVICE, "cpu"):
+            runs[dev] = train_mod.train(
+                MINICPM, strategy=strategy, nodes=4, steps=LM_TRAIN_STEPS,
+                batch_per_node=2, seq_len=64, eps=math.inf, smoke=True,
+                device=dev, state=_state_to(start, torch.device(dev)))
+        got, want = (_state_leaves(runs[d]["state"]) for d in (DEVICE,
+                                                                "cpu"))
+        require(sorted(got) == sorted(want), f"lm {strategy}: state trees")
+        d_state = max(float((got[k].cpu().float() - want[k].float())
+                            .abs().max()) for k in want)
+        d_metrics = max(abs(a[k] - b[k]) for a, b in zip(
+            runs[DEVICE]["history"], runs["cpu"]["history"]) for k in b)
+        log(f"lm {MINICPM} reduced {strategy} x{LM_TRAIN_STEPS} steps "
+            f"(f32, eps inf): card vs CPU state {d_state:.3g}, losses and "
+            f"metrics {d_metrics:.3g} (bound {LM_TRAIN_TOL}); losses "
+            f"{[round(h['loss'], 5) for h in runs[DEVICE]['history']]} | "
+            f"{card}")
+        require(d_state <= LM_TRAIN_TOL, f"lm {strategy}: card state off "
+                f"the CPU's by {d_state}")
+        require(d_metrics <= LM_TRAIN_TOL, f"lm {strategy}: card metrics "
+                f"off the CPU's by {d_metrics}")
+        out[strategy] = {"state": d_state, "metrics": d_metrics}
+    return out
+
+
+def _timed_run(spec, strategy, step_fn, state, batches, dev) -> tuple:
+    """``repro_torch.run``'s custom mode over MINICPM_STEPS steps after one
+    warm-up step (outside the count): (result, per-step seconds)."""
+    from repro_torch import ExecConfig, run
+    from repro_torch.device import synchronize
+    times = []
+
+    def timed(st, batch):
+        synchronize(dev)
+        t0 = time.perf_counter()
+        st, metrics = step_fn(st, batch)
+        synchronize(dev)
+        times.append(time.perf_counter() - t0)
+        return st, metrics
+
+    res = run(spec, engine=strategy, step_fn=timed, state=state,
+              batches=batches, horizon=MINICPM_STEPS,
+              exec=ExecConfig())
+    return res, times
+
+
+def lm_minicpm_phase(card: str) -> dict:
+    """Phase 21b: the paper's strategy at minicpm-2b's published width
+    (d 2,304, 36 heads, d_ff 5,760, vocab 122,753, tied, bf16), 8 of 40
+    layers, 4 ring nodes, per-node batch 2, T = 512, lam 1e-5: 5 gossip
+    steps at eps = 1 (coordinate calibration) and 5 at eps = inf (the
+    same batch on every node from equal params, deterministic algorithms
+    on: the nodes' theta must stay equal bit for bit), through
+    `make_gossip_train_step` and run()'s custom mode; then 5 all-reduce
+    AdamW steps on the same 8 x 512 tokens a step.
+
+    Its multi-GB leaves fragment the caching allocator past the card's
+    80 GB, so the phase runs with expandable segments, and turns them off
+    again at its end. The deterministic algorithms run with
+    ``warn_only=True``: strict mode also asks for a cuBLAS workspace
+    setting that must be made before the process's first cuBLAS call,
+    and that setting slowed phase 20b's B = 1 decode (tools/decode_ab.py,
+    PERF.md §6); the warnings are counted and logged."""
+    import torch
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        return _lm_minicpm_phase(card)
+    finally:
+        torch.cuda.memory._set_allocator_settings(
+            "expandable_segments:False")
+
+
+def _lm_minicpm_phase(card: str) -> dict:
+    import dataclasses
+    import warnings
+    import torch
+    from repro_torch.core import tree
+    from repro_torch.data import lm_batches
+    from repro_torch.device import synchronize
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import build_model
+    dev = torch.device(DEVICE)
+    full = _lm_config(MINICPM)
+    cfg = dataclasses.replace(full, num_layers=MINICPM_LAYERS)
+    model = build_model(cfg, DEVICE)
+    tokens = MINICPM_NODES * MINICPM_B * MINICPM_T
+    out = {}
+
+    def node_batches(same: bool):
+        for b in lm_batches(cfg.vocab_size, MINICPM_B, MINICPM_T,
+                            nodes=MINICPM_NODES, seed=3, device=DEVICE):
+            if same:
+                b = tree.tree_map(lambda x: x[:1].expand(
+                    (MINICPM_NODES,) + tuple(x.shape[1:])), b)
+            yield b
+
+    for eps in (1.0, math.inf):
+        recipe = steps_lib.TrainRecipe(eps=eps, lam=MINICPM_LAM)
+        gdp = steps_lib.make_gossip_dp(MINICPM_NODES, recipe)
+        torch.cuda.reset_peak_memory_stats()
+        state = steps_lib.make_gossip_init(model, gdp, MINICPM_NODES)(1)
+        theta_gb = sum(t.numel() * t.element_size()
+                       for t in tree.leaves(state.gossip.theta)) / 1e9
+        step_fn = steps_lib.make_gossip_train_step(model, gdp)
+        same = eps == math.inf
+        batches = node_batches(same)
+        torch.use_deterministic_algorithms(same, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                state, _ = step_fn(state, next(batches))   # warm-up
+                res, times = _timed_run(recipe.to_runspec(MINICPM_NODES),
+                                        "gossip", step_fn, state, batches,
+                                        dev)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        warned = sorted({str(w.message).split(".")[0][:80] for w in caught})
+        del state
+        hist = res.history
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        theta = res.final_state.gossip.theta
+        step_ms = statistics.median(times) * 1e3
+        row = {"losses": [h["loss"] for h in hist], "step_ms": step_ms,
+               "tokens_per_s": tokens / statistics.median(times),
+               "peak_gb": peak, "theta_gb": theta_gb,
+               "noise_scale": hist[0]["noise_scale"],
+               "sparsity": [h["theta_sparsity"] for h in hist]}
+        require(all(math.isfinite(v) for v in row["losses"]),
+                f"lm {MINICPM} gossip eps={eps}: loss not finite")
+        require((row["noise_scale"] > 0) == (eps != math.inf) and
+                all((h["noise_scale"] > 0) == (eps != math.inf)
+                    for h in hist),
+                f"lm {MINICPM} gossip eps={eps}: noise scale "
+                f"{[h['noise_scale'] for h in hist]}")
+        require(all(0.0 <= v <= 1.0 for v in row["sparsity"]),
+                f"lm {MINICPM} gossip: theta_sparsity {row['sparsity']}")
+        ledger = res.eps_ledger
+        require(len(ledger) == MINICPM_STEPS and
+                float(sum(ledger)) == MINICPM_STEPS * eps,
+                f"lm {MINICPM} gossip eps={eps}: eps ledger {ledger}")
+        # the step's model share: one node's forward and backward alone
+        node_params = tree.tree_map(lambda t: t[0].to(cfg.tdtype), theta)
+        node_batch = tree.tree_map(lambda x: x[0], next(batches))
+        for _ in range(2):                      # the second one is timed
+            synchronize(dev)
+            t0 = time.perf_counter()
+            _grads(model, node_params, node_batch)
+            synchronize(dev)
+        row["node_grad_ms"] = (time.perf_counter() - t0) * 1e3
+        del node_params
+        if same:
+            unequal = [k for k, t in tree.flatten_with_path(theta)
+                       if not all(torch.equal(t[0], t[i])
+                                  for i in range(1, MINICPM_NODES))]
+            require(not unequal, f"lm {MINICPM} eps=inf, same batch: the "
+                    f"nodes' theta part at {unequal[:4]}")
+            row["nodes_equal"] = (
+                f"bit for bit (deterministic algorithms, warn_only: "
+                f"{len(caught)} warnings {warned})")
+        log(f"lm {MINICPM} {cfg.num_layers} of {full.num_layers} layers at "
+            f"full width (d{cfg.d_model}, {cfg.num_heads} heads, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}) gossip "
+            f"{MINICPM_NODES} ring nodes x B={MINICPM_B} T={MINICPM_T}, "
+            f"eps={eps}{' same batch a node' if same else ''}: losses "
+            f"{[round(v, 4) for v in row['losses']]}, noise_scale "
+            f"{row['noise_scale']:.4g}, sparsity {row['sparsity'][-1]:.4g}, "
+            f"eps ledger {list(map(float, ledger))}; step (primal, 4 node "
+            f"grads, GossipDP.update) median {step_ms:.1f} ms "
+            f"{[round(t * 1e3, 1) for t in times]} = "
+            f"{row['tokens_per_s']:.0f} tokens/s, of which one node's "
+            f"forward and backward alone {row['node_grad_ms']:.1f} ms (x "
+            f"{MINICPM_NODES}); theta {theta_gb:.2f} GB "
+            f"f32, peak memory {peak:.2f} GB"
+            + (f"; nodes' theta {row['nodes_equal']}" if same else "")
+            + f" | {card}")
+        out[f"gossip_eps_{eps}"] = row
+        del res, theta, hist
+        torch.cuda.empty_cache()
+
+    recipe = steps_lib.TrainRecipe(strategy="allreduce")
+    step_fn, init = steps_lib.make_allreduce_train_step(model, recipe)
+    torch.cuda.reset_peak_memory_stats()
+    state = init(1)
+
+    def flat_batches():
+        for b in lm_batches(cfg.vocab_size, MINICPM_NODES * MINICPM_B,
+                            MINICPM_T, seed=3, device=DEVICE):
+            yield b
+
+    batches = flat_batches()
+    state, _ = step_fn(state, next(batches))               # warm-up
+    res, times = _timed_run(None, "allreduce", step_fn, state, batches, dev)
+    del state
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in res.history]
+    step_ms = statistics.median(times) * 1e3
+    log(f"lm {MINICPM} {cfg.num_layers}L all-reduce AdamW, B="
+        f"{MINICPM_NODES * MINICPM_B} T={MINICPM_T}: losses "
+        f"{[round(v, 4) for v in losses]}; step median {step_ms:.1f} ms "
+        f"{[round(t * 1e3, 1) for t in times]} = "
+        f"{tokens / statistics.median(times):.0f} tokens/s; peak memory "
+        f"{peak:.2f} GB | {card}")
+    require(all(math.isfinite(v) for v in losses),
+            f"lm {MINICPM} all-reduce: loss not finite")
+    out["allreduce"] = {"losses": losses, "step_ms": step_ms,
+                        "tokens_per_s": tokens / statistics.median(times),
+                        "peak_gb": peak}
+    del res, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_serve_phase(card: str) -> dict:
+    """Phase 21c: `launch.serve_lm.serve` of qwen2-7b at its full published
+    config (bf16): batch 4, prompt 32, 16 generated tokens, cache 128;
+    the first generated token held to `make_prefill_step`'s argmax over
+    the prompt wherever the top-2 gap exceeds 16 * 2^-8 of the largest
+    |logit|; then prefill at B = 1, T = 2,048 with and without
+    ``head_pad=16``, and the placement-only context managers bit for bit
+    off."""
+    import torch
+    from repro_torch.data.social import seeded_generator
+    from repro_torch.device import synchronize
+    from repro_torch.launch import serve_lm
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import attention, build_model, moe, transformer
+    dev = torch.device(DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    served = serve_lm.serve(QWEN, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                            gen=SERVE_GEN, cache_len=SERVE_CACHE, smoke=False,
+                            seed=0, device=DEVICE)
+    toks = served["tokens"]
+    cfg = _lm_config(QWEN)
+    require(toks.shape == (SERVE_BATCH, 1 + SERVE_GEN) and
+            int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+            f"lm {QWEN} serve: tokens {toks.shape} in "
+            f"[{toks.min()}, {toks.max()}]")
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    # serve()'s model and prompts again, from its seeds
+    model = build_model(cfg, DEVICE)
+    params = model.init(seeded_generator(dev, 0, 0))
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=seeded_generator(dev, 0, 1),
+                            device=dev, dtype=torch.int32)
+    require(bool((prompts[:, 0].cpu().numpy() == toks[:, 0]).all()),
+            f"lm {QWEN}: the prompts remade are not serve()'s")
+    real = slice(0, cfg.vocab_size)
+    with torch.no_grad():
+        logits = model.apply(params, prompts, last_only=True)[0][:, -1,
+                                                                 real]
+    arg = steps_lib.make_prefill_step(model, last_only=True)(
+        params, {"tokens": prompts})
+    top2 = torch.topk(logits.float(), 2, dim=-1).values
+    bound = QWEN_BF16_REL * float(logits.abs().max())
+    clear = (top2[:, 0] - top2[:, 1] > bound).cpu().numpy()
+    first = toks[:, 1]
+    require(bool((arg.cpu().numpy() == logits.argmax(-1).cpu().numpy())
+                 .all()), f"lm {QWEN}: prefill step argmax off apply's")
+    require(bool((first[clear] == arg.cpu().numpy()[clear]).all()),
+            f"lm {QWEN}: first generated {first} vs prefill argmax "
+            f"{arg.tolist()} where clear {clear}")
+    log(f"lm {QWEN} serve (full config, bf16, smoke=False) B={SERVE_BATCH} "
+        f"prompt {SERVE_PROMPT} gen {SERVE_GEN} cache {SERVE_CACHE}: "
+        f"{served['seconds']:.2f} s = "
+        f"{(SERVE_PROMPT + SERVE_GEN - 1) / served['seconds']:.1f} decode "
+        f"steps/s = {SERVE_BATCH * SERVE_GEN / served['seconds']:.1f} "
+        f"generated tokens/s; first generated token == prefill argmax at "
+        f"{int(clear.sum())} of {SERVE_BATCH} rows whose top-2 gap exceeds "
+        f"{bound:.4g}; peak memory {serve_peak:.2f} GB | {card}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (1, PREFILL_T), generator=gen,
+                           device=dev)
+    with torch.no_grad():
+        plain = model.apply(params, tokens, last_only=True)[0][0, -1, real]
+        synchronize(dev)
+        t0 = time.perf_counter()
+        with attention.head_padding(PREFILL_PAD, "model"):
+            padded = model.apply(params, tokens,
+                                 last_only=True)[0][0, -1, real]
+        synchronize(dev)
+        pad_s = time.perf_counter() - t0
+        with attention.sequence_parallel("model"), \
+                attention.batch_parallel("model"), \
+                transformer.sp_residual("model"), \
+                moe.grouped_dispatch(1, "data"):
+            placed = model.apply(params, tokens, last_only=True)[0][0, -1,
+                                                                    real]
+    synchronize(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model.apply(params, tokens, last_only=True)
+    synchronize(dev)
+    plain_s = time.perf_counter() - t0
+    args = {pad: steps_lib.make_prefill_step(model, last_only=True,
+                                             head_pad=pad)(
+        params, {"tokens": tokens}) for pad in (None, PREFILL_PAD)}
+    d = float((padded.float() - plain.float()).abs().max())
+    pbound = QWEN_BF16_REL * float(plain.abs().max())
+    with attention.head_padding(PREFILL_PAD):
+        heads = attention._padded_group(cfg, cfg.num_heads,
+                                        cfg.kv_heads) * cfg.kv_heads
+    log(f"lm {QWEN} prefill B=1 T={PREFILL_T}: head_pad={PREFILL_PAD} "
+        f"({cfg.num_heads} heads -> {heads} on {cfg.kv_heads} kv groups) last "
+        f"logits vs plain max |delta| {d:.4g} (bound {pbound:.4g}), argmax "
+        f"{args[None].item()} / {args[PREFILL_PAD].item()}; "
+        f"{plain_s * 1e3:.1f} ms plain, {pad_s * 1e3:.1f} ms padded; "
+        f"sequence_parallel, batch_parallel, sp_residual and "
+        f"grouped_dispatch(axis) on: bit for bit off "
+        f"{bool(torch.equal(placed, plain))} | {card}")
+    require(d <= pbound, f"lm {QWEN}: head-padded prefill off by {d}")
+    require(bool(torch.equal(args[None], args[PREFILL_PAD])),
+            f"lm {QWEN}: head-padded argmax {args}")
+    require(bool(torch.equal(placed, plain)), f"lm {QWEN}: the placement "
+            "context managers changed the logits")
+    del params, model
+    torch.cuda.empty_cache()
+    return {"serve_s": served["seconds"], "serve_peak_gb": serve_peak,
+            "clear_rows": int(clear.sum()), "pad_delta": d,
+            "prefill_ms": plain_s * 1e3, "prefill_padded_ms": pad_s * 1e3}
+
+
+def lm_train_serve_phase(card: str) -> dict:
+    """Phase 21: the LM stack's train and serve paths (see 21a-c)."""
+    return {"card_vs_cpu": lm_card_vs_cpu(card),
+            "minicpm": lm_minicpm_phase(card), "serve": lm_serve_phase(card)}
+
+
 PATHS = {"round_stats": "main, serve", "round_update": "main, serve",
          "dual_step": "hybrid (phase 6, complete, time_varying, faults)",
          "pdomd_update": "ops", "hinge_grad": "ops"}
@@ -3305,6 +3712,7 @@ def main() -> int:
     figures = figures_phase(sweep13, card)
     ablations = ablations_phase(card)
     lm_phase(card)
+    lm_train_serve_phase(card)
     hybrid = {"hybrid": launches["dual_step"],
               **{name: run["launches"]["dual_step"]
                  for name, run in topologies.items()

@@ -13,9 +13,11 @@ saved the same way with a leading seed axis on every leaf, ``generator``
 holding one row per seed.
 
 Any other tree — a dict, list or tuple of tensors or arrays, such as the
-serving layer's ``{"theta": tensor}`` (`repro_torch.serve`) — is saved
-leaf by leaf under the same path names (``theta``; ``a/b`` for nested
-keys) and restored into the structure, dtypes and devices of a like tree.
+serving layer's ``{"theta": tensor}`` (`repro_torch.serve`) or the LM
+train states of `repro_torch.launch.steps` — is saved leaf by leaf under
+the same path names (``theta``; ``a/b`` for nested keys; a bfloat16
+tensor as float32, which holds it exactly; a generator as its state) and
+restored into the structure, dtypes and devices of a like tree.
 """
 from __future__ import annotations
 
@@ -46,8 +48,13 @@ def _leaf_arrays(state) -> dict[str, torch.Tensor]:
 
 
 def _host(leaf) -> np.ndarray:
-    return (leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor)
-            else np.asarray(leaf))
+    if isinstance(leaf, torch.Generator):
+        return leaf.get_state().numpy()
+    if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.float()
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
 
 
 def save_checkpoint(directory: str, step: int, state) -> str:
@@ -126,19 +133,30 @@ def restore_checkpoint(directory: str, like, step: int | None = None):
 
 def _restore_tree(path: str, like):
     """The tree saved at ``path``, in the structure of ``like``: a tensor
-    leaf comes back as a tensor of its dtype on its device, any other leaf
-    as a numpy array."""
+    leaf comes back as a tensor of its dtype on its device, a generator as
+    a generator in the saved state, an int or float as one, any other
+    leaf as a numpy array."""
     with np.load(path) as data:
         leaves = []
         for key, want in tree.flatten_with_path(like):
             if key not in data.files:
                 raise ValueError(f"checkpoint has no {key!r}")
             arr = data[key]
+            if isinstance(want, torch.Generator):
+                gen = torch.Generator(device=want.device)
+                gen.set_state(torch.as_tensor(arr))
+                leaves.append(gen)
+                continue
             if tuple(arr.shape) != tuple(np.shape(want)):
                 raise ValueError(f"checkpoint {key} {tuple(arr.shape)} does "
                                  f"not match {tuple(np.shape(want))}")
-            leaves.append(torch.as_tensor(arr).to(want.device, want.dtype)
-                          if isinstance(want, torch.Tensor) else arr)
+            if isinstance(want, torch.Tensor):
+                leaves.append(torch.as_tensor(arr).to(want.device,
+                                                      want.dtype))
+            elif isinstance(want, (int, float)):
+                leaves.append(type(want)(arr))
+            else:
+                leaves.append(arr)
     return tree.unflatten(tree.flatten(like)[1], leaves)
 
 

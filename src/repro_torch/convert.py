@@ -21,6 +21,15 @@ for a per-layer list), into the port's nested dicts on ``device``, each
 leaf in the dtype the port's own init gives it (bf16 arrays may come as
 float32 numpy, which holds every bf16 value exactly).
 
+`train_state_from_jax` carries a reference LM train state of
+`repro.launch.steps` into the port's: a ``GossipTrainState`` (keys
+``gossip/theta/<param path>`` — each leaf the model's with a leading node
+axis —, ``gossip/t`` and, with a delay, ``gossip/history/<param path>``;
+``gossip/key`` is not carried) or an ``AllreduceTrainState`` (keys
+``params/<param path>``, ``opt/step``, ``opt/m/<param path>`` and
+``opt/v/<param path>``). Theta, its history and the AdamW moments are
+float32; the parameters take the port's dtype for them.
+
 `snapshot_from_jax` turns a reference serving snapshot
 (`repro.serve.Snapshot`, or a mapping of its fields) into the port's
 `repro_torch.serve.Snapshot` on ``device``: the same version, round and
@@ -37,7 +46,8 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["state_from_jax", "snapshot_from_jax", "model_params_from_jax"]
+__all__ = ["state_from_jax", "snapshot_from_jax", "model_params_from_jax",
+           "train_state_from_jax"]
 
 
 def _nested(flat: dict[str, torch.Tensor]):
@@ -149,12 +159,11 @@ def _tree_of_paths(flat: Mapping[str, np.ndarray]):
     return lists(out)
 
 
-def model_params_from_jax(cfg, params: Mapping[str, np.ndarray],
-                          device: str | torch.device = "cuda"):
-    """The port's parameters of ``cfg``'s model holding a reference
-    model's: ``params`` maps each pytree path to its array. The keys and
-    shapes must be those of the port's init (checked); each leaf takes the
-    port's dtype for it."""
+def _model_tree(cfg, params: Mapping[str, np.ndarray], device, *,
+                lead: tuple = (), dtype: torch.dtype | None = None):
+    """``cfg``'s parameter tree holding ``params`` (path -> array): each
+    leaf of shape ``lead`` + the port's, in ``dtype`` (default: the
+    port's dtype for it), on ``device``."""
     from repro_torch.core.tree import flatten_with_path, tree_map
     from repro_torch.models import build_model
     want = build_model(cfg, device="meta").init(0)
@@ -163,10 +172,10 @@ def model_params_from_jax(cfg, params: Mapping[str, np.ndarray],
 
     def leaf(w: torch.Tensor, a) -> torch.Tensor:
         a = np.array(a, np.float32 if w.is_floating_point() else None)
-        if tuple(a.shape) != tuple(w.shape):
+        if tuple(a.shape) != tuple(lead) + tuple(w.shape):
             raise ValueError(f"shape {a.shape}, the port's is "
-                             f"{tuple(w.shape)}")
-        return torch.from_numpy(a).to(device=dev, dtype=w.dtype)
+                             f"{tuple(lead) + tuple(w.shape)}")
+        return torch.from_numpy(a).to(device=dev, dtype=dtype or w.dtype)
 
     paths = {p for p, _ in flatten_with_path(want)}
     given = {p for p, _ in flatten_with_path(got)}
@@ -175,3 +184,58 @@ def model_params_from_jax(cfg, params: Mapping[str, np.ndarray],
             f"not {cfg.name}'s parameters: missing {sorted(paths - given)}, "
             f"unexpected {sorted(given - paths)}")
     return tree_map(leaf, want, got)
+
+
+def _field(arrays: Mapping[str, np.ndarray], prefix: str) -> dict:
+    """The arrays under ``prefix/``, keyed by the rest of their path."""
+    return {k[len(prefix) + 1:]: v for k, v in arrays.items()
+            if k.startswith(prefix + "/")}
+
+
+def model_params_from_jax(cfg, params: Mapping[str, np.ndarray],
+                          device: str | torch.device = "cuda"):
+    """The port's parameters of ``cfg``'s model holding a reference
+    model's: ``params`` maps each pytree path to its array. The keys and
+    shapes must be those of the port's init (checked); each leaf takes the
+    port's dtype for it."""
+    return _model_tree(cfg, params, device)
+
+
+def train_state_from_jax(cfg, arrays: Mapping[str, np.ndarray],
+                         device: str | torch.device = "cuda", *,
+                         seed: int = 0):
+    """The port's ``GossipTrainState`` or ``AllreduceTrainState``
+    (`repro_torch.launch.steps`) holding a reference one, given as numpy
+    arrays keyed by path (see the module docstring). The gossip state's
+    noise generator is seeded from ``seed``."""
+    from repro_torch.core.gossip import GossipState
+    from repro_torch.launch.steps import AllreduceTrainState, GossipTrainState
+    dev = resolve_device(device)
+    gossip = _field(arrays, "gossip")
+    if gossip:
+        theta = _field(gossip, "theta")
+        nodes = int(np.shape(next(iter(theta.values())))[0])
+        history = _field(gossip, "history")
+        depth = (int(np.shape(next(iter(history.values())))[0])
+                 if history else None)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        return GossipTrainState(gossip=GossipState(
+            theta=_model_tree(cfg, theta, dev, lead=(nodes,),
+                              dtype=torch.float32),
+            t=int(np.asarray(gossip["t"])), generator=gen,
+            history=(_model_tree(cfg, history, dev, lead=(depth, nodes),
+                                 dtype=torch.float32) if history else None)))
+    params = _field(arrays, "params")
+    if not params:
+        raise ValueError("no 'gossip/...' or 'params/...' arrays: not a "
+                         "reference LM train state")
+
+    def moments(name: str):
+        return _model_tree(cfg, _field(arrays, f"opt/{name}"), dev,
+                           dtype=torch.float32)
+
+    opt = {"step": torch.as_tensor(np.array(arrays["opt/step"]),
+                                   dtype=torch.int32, device=dev),
+           "m": moments("m"), "v": moments("v")}
+    return AllreduceTrainState(params=_model_tree(cfg, params, dev), opt=opt)

@@ -27,6 +27,8 @@ A mixer with ``delay > 0`` makes the state carry a history ring per leaf,
 from __future__ import annotations
 
 import dataclasses
+import functools
+import operator
 from typing import Any, NamedTuple
 
 import torch
@@ -182,6 +184,7 @@ class GossipDP:
                                     mechanism=self.mechanism)
         theta_next = tree.tree_map(
             lambda th, g: self.local_rule.dual_step(th, g, ctx), mixed, grads)
+        del mixed, grads        # a full theta's worth of memory each
         # crashed nodes (a fault schedule on the mixer) freeze every leaf of
         # their local state until the crash window ends
         fault_sched = getattr(self.mixer, "schedule", None)
@@ -199,6 +202,17 @@ class GossipDP:
             "alpha_t": ctx.alpha_t,
             "noise_scale": scale,
             "grad_norm_mean": torch.mean(gnorms),
-            "theta_sparsity": prox.sparsity_tree(self.primal(new_state)),
+            "theta_sparsity": self._primal_sparsity(new_state),
         }
         return new_state, metrics
+
+    def _primal_sparsity(self, state: GossipState) -> torch.Tensor:
+        """`prox.sparsity_tree` of :meth:`primal`, the primal made and
+        counted one leaf at a time (the same counts, added in leaf order):
+        never a whole primal tree beside theta."""
+        ctx = self._ctx(state.t + 1)
+        leaves = tree.leaves(state.theta)
+        zeros = functools.reduce(operator.add, [
+            (self.local_rule.primal(th, ctx).abs() <= 0.0).sum()
+            for th in leaves])
+        return prox.zero_fraction(zeros, sum(th.numel() for th in leaves))

@@ -9,6 +9,11 @@ repro_torch.launch.sweep`` runs a sweep (`repro_torch.sweep`), ``python -m
 repro_torch.launch.serve`` serves predictions while the ring learns
 (`repro_torch.serve`), and ``python -m repro_torch.launch.obs report``
 renders a run-event stream (`repro_torch.obs`); `launch.mesh` builds the
-device meshes that shard a run's node or seed axis. The LM modes
-(``--arch``) and the LM production meshes wait in ROADMAP queue 1 item 5.
+device meshes that shard a run's node or seed axis, and the LM stack's
+production meshes (``meta`` positions: counted, not run). The LM stack:
+``python -m repro_torch.launch.train --arch`` trains an architecture with
+the gossip or all-reduce step of `launch.steps`, and ``python -m
+repro_torch.launch.serve_lm`` decodes greedily. Only the LM dry-run
+(``dryrun --arch/--all``) and `hlo_analysis` wait, in ROADMAP queue 1
+item 5 part 4.
 """

@@ -17,8 +17,10 @@ reference's keys (``hlo_flops``, ``hlo_bytes``), the device's peak memory
 over the counted round (and above what was allocated before it), and the
 predicted chunk time on the calibrated
 roofline, in ``experiments/dryrun/``. The ``--arch`` and ``--all`` modes
-(LM architectures on production meshes) belong to the LM stack: they
-raise, naming ROADMAP queue 1 item 5.
+(each LM architecture x input shape counted on the production meshes)
+wait, with `hlo_analysis`'s roofline terms, in ROADMAP queue 1 item 5
+part 4: they raise, naming it. The LM steps, specs and meshes they need
+are ported (`launch.steps`, `launch.mesh`, `repro_torch.sharding`).
 """
 from __future__ import annotations
 
@@ -36,9 +38,9 @@ __all__ = ["dryrun_stream", "main", "OUT_DIR"]
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "experiments", "dryrun")
-_LM_STACK = ("the LM dry-run (--arch/--all: lowering every architecture x "
-             "input shape on the production meshes; ROADMAP queue 1 item 5: "
-             "the LM stack)")
+_LM_STACK = ("the LM dry-run (--arch/--all: counting every architecture x "
+             "input shape on the production meshes, with hlo_analysis's "
+             "roofline terms; ROADMAP queue 1 item 5 part 4)")
 
 
 def dryrun_stream(stream: str, *, engine: str = "sim", nodes: int = 8,
@@ -109,7 +111,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="count a STREAMS scenario's chunk program (--stream)")
     ap.add_argument("--arch", default=None,
                     help="LM architecture: not ported (ROADMAP queue 1 "
-                         "item 5)")
+                         "item 5 part 4)")
     ap.add_argument("--shape", default=None, help="LM mode only")
     ap.add_argument("--all", action="store_true",
                     help="every LM architecture: not ported")

@@ -16,6 +16,14 @@ prebuilt `Mesh` may repeat a device: a mesh of four shards on one card runs
 the four-shard program (partition, padding, halo copies, the kernels per
 shard) on that card.
 
+The LM stack's production meshes (256 and 512 positions) cannot be held on
+the one or four cards a machine here has: they are built of ``meta``
+positions, which can be counted (shapes, `repro_torch.sharding` specs) but
+not run. A CUDA mesh larger than the visible cards still raises. ``with
+mesh:`` makes a mesh the active one for the sharding context managers of
+`repro_torch.models`, which check the axes they name against it
+(`repro_torch.sharding.rules.check_axis`).
+
 >>> mesh = make_mesh((2, 3), ("seed", "node"), device="cpu")
 >>> mesh.shape, mesh.axis_names, mesh.size
 ({'seed': 2, 'node': 3}, ('seed', 'node'), 6)
@@ -23,6 +31,9 @@ shard) on that card.
 {'node': 4}
 >>> node_mesh(1, device="cpu") is None, seed_mesh("auto", device="cpu")
 (True, None)
+>>> prod = make_production_mesh(multi_pod=True)
+>>> prod.shape, prod.device_type, gossip_axes(prod), gossip_nodes(prod)
+({'pod': 2, 'data': 16, 'model': 16}, 'meta', ('pod',), 2)
 """
 from __future__ import annotations
 
@@ -31,8 +42,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.api.spec import not_ported
 from repro_torch.device import resolve_device
+from repro_torch.sharding import rules as shard_rules
 
 __all__ = ["Mesh", "make_mesh", "seed_mesh", "node_mesh", "seed_node_mesh",
            "mesh_device", "make_production_mesh", "make_test_mesh",
@@ -87,6 +98,13 @@ class Mesh:
         return (f"Mesh({self.shape}, "
                 f"devices={[str(d) for d in self.devices.flat]})")
 
+    def __enter__(self) -> "Mesh":
+        shard_rules._ACTIVE_MESH.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        shard_rules._ACTIVE_MESH.pop()
+
 
 def _visible(device: str) -> int:
     """How many distinct devices of this type the process sees (the CPU
@@ -109,10 +127,13 @@ def make_mesh(shape, axes, devices=None, *, device: str = "cuda") -> Mesh:
     ``devices`` (a flat sequence in row-major order, repeats allowed) places
     the positions; without it they take the visible devices of type
     ``device``: distinct cards on CUDA (ValueError when there are fewer),
-    ``cpu`` at every position on the CPU.
+    ``cpu`` at every position on the CPU, ``meta`` (counted, not run) at
+    every position for ``device="meta"``.
     """
     shape = tuple(int(s) for s in shape)
     size = int(np.prod(shape))
+    if devices is None and torch.device(device).type == "meta":
+        devices = ["meta"] * size
     if devices is None:
         dev = resolve_device(device)
         if dev.type == "cpu":
@@ -202,31 +223,34 @@ def mesh_device(mesh: Mesh, device: str | torch.device) -> torch.device:
     return mesh.devices.flat[0]
 
 
-def _lm_stack(name: str):
-    raise not_ported(f"{name} (the LM stack's production meshes, ROADMAP "
-                     "queue 1 item 5)")
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: str = "meta") -> Mesh:
+    """Single pod: 256 positions (16, 16) = ("data", "model").
+    Multi-pod: 512 positions (2, 16, 16) = ("pod", "data", "model");
+    each pod is one gossip data center. ``meta`` positions by default (no
+    machine here has the cards); ``device="cuda"`` asks for distinct cards
+    and raises when fewer are visible."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device=device)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's 256/512-chip LM meshes; not ported (item 5)."""
-    _lm_stack("make_production_mesh")
+def make_test_mesh(data: int = 4, model: int = 2, *,
+                   device: str = "cuda") -> Mesh:
+    """Small ("data", "model") mesh (``data * model`` shards of ``cpu``
+    on the CPU)."""
+    return make_mesh((data, model), ("data", "model"), device=device)
 
 
-def make_test_mesh(data: int = 4, model: int = 2):
-    """The reference's ("data", "model") LM test mesh; not ported."""
-    _lm_stack("make_test_mesh")
+def gossip_axes(mesh) -> tuple[str, ...]:
+    """Which mesh axes carry the gossip node dimension."""
+    return ("pod",) if "pod" in mesh.axis_names else ("data",)
 
 
-def gossip_axes(mesh):
-    """The LM mesh axes that carry the gossip nodes; not ported."""
-    _lm_stack("gossip_axes")
+def gossip_nodes(mesh) -> int:
+    return int(np.prod([mesh.shape[a] for a in gossip_axes(mesh)]))
 
 
-def gossip_nodes(mesh):
-    """The LM mesh's gossip node count; not ported."""
-    _lm_stack("gossip_nodes")
-
-
-def data_axes_for_batch(mesh):
-    """The LM mesh axes a node's batch shards over; not ported."""
-    _lm_stack("data_axes_for_batch")
+def data_axes_for_batch(mesh) -> tuple[str, ...]:
+    """Axes the *within-node* batch dim shards over."""
+    return ("data",) if "pod" in mesh.axis_names else ()

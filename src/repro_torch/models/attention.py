@@ -24,6 +24,14 @@ Design notes
   (slot_pos >= 0) & (slot_pos <= pos) & (slot_pos > pos - window).
 * Not scaled_dot_product_attention: the reference's order of operations
   is what the tests hold the port to.
+* The sharding context managers of the reference: ``head_padding`` changes
+  the computation (zero query heads per kv group for GQA, dummy q/k/v
+  heads for MHA, sliced away before ``wo``; exact) and is ported as such.
+  ``sequence_parallel``, ``batch_parallel`` and the axis of
+  ``head_padding`` only constrain placement in the reference. The port's
+  one-process LM runs on one device, so the axis each names is recorded
+  and checked against the active mesh (`repro_torch.sharding.rules.
+  check_axis`), not placed; they change no value.
 """
 from __future__ import annotations
 
@@ -35,8 +43,10 @@ import torch
 
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.rules import check_axis
 
 __all__ = ["BLOCKWISE_THRESHOLD", "Q_CHUNK", "K_CHUNK", "NEG_INF",
+           "sequence_parallel", "head_padding", "batch_parallel",
            "flash_vjp", "rope_inv_freq", "default_positions", "apply_rope",
            "attn_init", "attention_full", "init_attn_cache",
            "attention_decode"]
@@ -47,6 +57,109 @@ K_CHUNK = 1024
 NEG_INF = -1e30
 
 F32 = torch.float32
+
+# sequence-parallel attention: the reference shards blockwise attention's
+# time dim over this axis; here the axis is recorded and checked
+_SEQ_PARALLEL_AXIS: list = [None]
+
+
+@contextlib.contextmanager
+def sequence_parallel(axis: str | None):
+    _SEQ_PARALLEL_AXIS.append(axis)
+    try:
+        yield
+    finally:
+        _SEQ_PARALLEL_AXIS.pop()
+
+
+# head padding: pad each kv group's query heads (GQA) or every head (MHA)
+# so the head count divides ``multiple``; exact (padded outputs are sliced
+# away before wo). The axis is the reference's head-sharding axis.
+_HEAD_PAD_MULTIPLE: list = [None]
+_HEAD_PAD_AXIS: list = [None]
+
+
+@contextlib.contextmanager
+def head_padding(multiple: int | None, axis: str | None = None):
+    _HEAD_PAD_MULTIPLE.append(multiple)
+    _HEAD_PAD_AXIS.append(axis)
+    try:
+        yield
+    finally:
+        _HEAD_PAD_MULTIPLE.pop()
+        _HEAD_PAD_AXIS.pop()
+
+
+def _padded_group(cfg, H: int, Kv: int) -> int:
+    mult = _HEAD_PAD_MULTIPLE[-1]
+    if mult is None or H % mult == 0:
+        return H // Kv
+    g = H // Kv
+    # smallest g' >= g with Kv*g' % mult == 0
+    g2 = g
+    while (Kv * g2) % mult:
+        g2 += 1
+    return g2
+
+
+def _pad_dim(x: torch.Tensor, dim: int, pad: int) -> torch.Tensor:
+    """``x`` with ``pad`` zero slices appended along ``dim``."""
+    if not pad:
+        return x
+    shape = list(x.shape)
+    shape[dim] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+
+def _maybe_pad_heads(q, k, v, cfg):
+    """Pad heads so the head dim divides the active multiple.
+
+    GQA (g > 1): pad each kv group with zero QUERY heads (k/v untouched).
+    MHA/per-head (g == 1): pad BOTH q and k/v with dummy heads — each real
+    head still attends only its own kv, dummy outputs are sliced away.
+    Returns (q, k, v, H_orig, kv_padded: bool).
+    """
+    B, T, H, hd = q.shape
+    Kv = cfg.kv_heads
+    g = H // Kv
+    mult = _HEAD_PAD_MULTIPLE[-1]
+    if mult is None or H % mult == 0:
+        return q, k, v, H, False
+    if g > 1:
+        g2 = _padded_group(cfg, H, Kv)
+        qg = _pad_dim(q.reshape(B, T, Kv, g, hd), 3, g2 - g)
+        return qg.reshape(B, T, Kv * g2, hd), k, v, H, False
+    # MHA: pad q AND kv heads to the next multiple
+    H2 = -(-H // mult) * mult
+    return (_pad_dim(q, 2, H2 - H), _pad_dim(k, 2, H2 - H),
+            _pad_dim(v, 2, H2 - H), H, True)
+
+
+def _maybe_unpad_heads(o, cfg, H_orig, kv_padded):
+    B, T, H2, hd = o.shape
+    if H2 == H_orig:
+        return o
+    if kv_padded:  # MHA padding: plain head slice
+        return o[:, :, :H_orig]
+    Kv = cfg.kv_heads
+    g = H_orig // Kv
+    og = o.reshape(B, T, Kv, H2 // Kv, hd)[:, :, :, :g]
+    return og.reshape(B, T, H_orig, hd)
+
+
+# batch-parallel attention: the reference shards q/k/v's batch dim over
+# this axis (training); here the axis is recorded and checked
+_BATCH_PARALLEL_AXIS: list = [None]
+
+
+@contextlib.contextmanager
+def batch_parallel(axis: str | None):
+    _BATCH_PARALLEL_AXIS.append(axis)
+    try:
+        yield
+    finally:
+        _BATCH_PARALLEL_AXIS.pop()
+
 
 # ---------------------------------------------------------------------------
 # RoPE
@@ -230,6 +343,7 @@ def _blockwise_fwd_stats(q, k, v, window, softcap, q_chunk, k_chunk):
 def _blockwise_attention(q, k, v, window, softcap, q_chunk=Q_CHUNK,
                          k_chunk=K_CHUNK):
     """Causal blockwise attention; positions are arange (self-attention)."""
+    check_axis(_SEQ_PARALLEL_AXIS[-1], "sequence_parallel")
     return _blockwise_fwd_stats(q, k, v, window, softcap, q_chunk,
                                 k_chunk)[0]
 
@@ -336,6 +450,9 @@ def attention_full(p: dict, cfg: ModelConfig, x: torch.Tensor,
     if window == "cfg":
         window = cfg.sliding_window
     q, k, v = _project_qkv(p, cfg, x, positions)
+    check_axis(_BATCH_PARALLEL_AXIS[-1], "batch_parallel")
+    check_axis(_HEAD_PAD_AXIS[-1], "head_padding")
+    q, k, v, H_orig, kv_padded = _maybe_pad_heads(q, k, v, cfg)
     if T <= BLOCKWISE_THRESHOLD:
         pos = torch.arange(T, device=x.device)
         o = _full_attention(q, k, v, pos, pos, window, cfg.attn_logit_softcap)
@@ -343,6 +460,7 @@ def attention_full(p: dict, cfg: ModelConfig, x: torch.Tensor,
         o = _flash_attention(q, k, v, window, cfg.attn_logit_softcap)
     else:
         o = _blockwise_attention(q, k, v, window, cfg.attn_logit_softcap)
+    o = _maybe_unpad_heads(o, cfg, H_orig, kv_padded)
     return layers.linear(p["wo"], o.reshape(B, T, -1))
 
 

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.rules import check_axis
 
 __all__ = ["grouped_dispatch", "current_dispatch_groups", "moe_init",
            "moe_apply"]
@@ -28,22 +29,23 @@ F32 = torch.float32
 
 # grouped-dispatch context (the reference's serving/dry-run perf variants)
 _DISPATCH_GROUPS: list = [1]
+_DISPATCH_AXIS: list = [None]
 
 
 @contextlib.contextmanager
 def grouped_dispatch(groups: int, axis: str | None = None):
     """Split each MoE layer's tokens into ``groups`` dispatch groups (the
     capacity per group is C/G). ``axis`` shards the group dim over a mesh
-    axis in the reference: sharding is ROADMAP queue 1 item 5.3."""
-    if axis is not None:
-        raise NotImplementedError(
-            "grouped_dispatch(axis=...) shards the group dim over a mesh "
-            "axis; the LM stack's sharding is ROADMAP queue 1 item 5.3")
+    axis in the reference; the port's one-process LM runs on one device,
+    so the axis is checked against the active mesh
+    (`repro_torch.sharding.rules.check_axis`) and changes no value."""
     _DISPATCH_GROUPS.append(groups)
+    _DISPATCH_AXIS.append(axis)
     try:
         yield
     finally:
         _DISPATCH_GROUPS.pop()
+        _DISPATCH_AXIS.pop()
 
 
 def current_dispatch_groups() -> int:
@@ -130,6 +132,7 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
         G = dispatch_groups
         assert N % G == 0, (N, G)
         xg = x.reshape(G, 1, N // G, D)
+        check_axis(_DISPATCH_AXIS[-1], "grouped_dispatch")
         outs = [moe_apply(p, cfg, xg[i], 1) for i in range(G)]
         y = torch.stack([o[0] for o in outs]).reshape(B, T, D)
         return y, torch.mean(torch.stack([o[1] for o in outs]))

@@ -25,9 +25,16 @@ functions:
 
 ``cfg.remat`` recomputes each layer's forward in the backward pass
 (`torch.utils.checkpoint`) while autograd records; it changes no value.
+
+``sp_residual(axis)`` is the reference's sequence-parallel residual
+stream, which shards the between-layer activations' time dim over
+``axis``. The port's one-process LM runs on one device: the axis is
+checked against the active mesh (`repro_torch.sharding.rules.check_axis`)
+and changes no value.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -37,8 +44,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention, layers, mlp, moe, rglru, rwkv6
 from repro_torch.models.config import ModelConfig
 from repro_torch.core.tree import tree_map
+from repro_torch.sharding.rules import check_axis
 
-__all__ = ["Model", "layer_kinds", "build_model"]
+__all__ = ["Model", "layer_kinds", "build_model", "sp_residual"]
 
 F32 = torch.float32
 
@@ -133,8 +141,21 @@ def _layer_init(key, cfg: ModelConfig, kind: str) -> dict:
     return p
 
 
+_SP_RESIDUAL_AXIS: list = [None]
+
+
+@contextlib.contextmanager
+def sp_residual(axis: str | None):
+    _SP_RESIDUAL_AXIS.append(axis)
+    try:
+        yield
+    finally:
+        _SP_RESIDUAL_AXIS.pop()
+
+
 def _layer_apply(p, cfg: ModelConfig, kind: str, x, positions):
     """Full-sequence (train/prefill) layer. Returns (x, aux)."""
+    check_axis(_SP_RESIDUAL_AXIS[-1], "sp_residual")
     aux = torch.zeros((), dtype=F32, device=x.device)
     if kind == "rwkv":
         state = rwkv6.init_block_state(cfg, x.shape[0], x.device)

@@ -128,14 +128,40 @@ def test_train_cli_needs_a_mode(capsys):
 
 
 @pytest.mark.parametrize("call", [
-    lambda: train.main(["--arch", "minicpm-2b", "--steps", "2"]),
-    lambda: train.train("minicpm-2b", device="cpu"),
     lambda: dryrun.main(["--arch", "minicpm-2b", "--shape", "train_4k"]),
     lambda: dryrun.main(["--all"])])
 def test_the_lm_modes_raise_naming_the_queue(call):
+    """The LM dry-run still waits (ROADMAP queue 1 item 5 part 4); the LM
+    training mode is ported (the two tests below)."""
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1") as e:
         call()
-    assert "item 5" in str(e.value)
+    assert "item 5 part 4" in str(e.value)
+
+
+@pytest.mark.parametrize("strategy", ["gossip", "allreduce"])
+def test_train_arch_cli_runs_on_the_cpu(strategy, capsys):
+    """`launch.train --arch` on the CPU: run()'s custom mode prints the
+    reference's step lines and returns the strategy's state."""
+    from repro_torch.launch.steps import (AllreduceTrainState,
+                                          GossipTrainState)
+    res = train.main(["--arch", "minicpm-2b", "--steps", "2", "--nodes",
+                      "2", "--seq-len", "16", "--strategy", strategy,
+                      "--device", "cpu"])
+    assert "step    1 loss=" in capsys.readouterr().out
+    assert len(res["history"]) == 2
+    assert all(np.isfinite(h["loss"]) for h in res["history"])
+    want = GossipTrainState if strategy == "gossip" else AllreduceTrainState
+    assert isinstance(res["state"], want)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "seamless-m4t-medium"])
+def test_train_arch_adds_the_frontend(arch):
+    """`train(arch=)` feeds the vision arch zeros for its frontend tokens
+    with those labels masked, and the enc-dec arch zero frames, as the
+    reference's driver does; one gossip step on each."""
+    res = train.train(arch, nodes=2, steps=1, seq_len=16, device="cpu")
+    assert np.isfinite(res["history"][0]["loss"])
+    assert res["state"].gossip.t == 1
 
 
 def _reference_record_keys() -> list:

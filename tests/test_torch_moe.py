@@ -171,7 +171,9 @@ def test_moe_grads_flow_to_experts_and_router():
 def test_grouped_dispatch_matches_the_reference():
     """G = 2 dispatch groups (capacity C/G each; a group is a half of the
     tokens) at capacity 1.25, where drops are live: the reference's
-    output and aux; the context sets the groups and refuses a mesh axis."""
+    output and aux; the context sets the groups, and a mesh axis for the
+    group dim changes no bit (the port runs on one device: the axis is
+    checked against the active mesh, not placed)."""
     jcfg, cfg = _cfgs(cf=1.25)
     jp, jx, p, x = _layer(jcfg, (2, 32, 32), skew=3.0)
     y, aux = moe.moe_apply(p, cfg, x, dispatch_groups=2)
@@ -182,6 +184,14 @@ def test_grouped_dispatch_matches_the_reference():
     with moe.grouped_dispatch(2):
         assert moe.current_dispatch_groups() == 2
     assert moe.current_dispatch_groups() == 1
-    with pytest.raises(NotImplementedError, match="item 5.3"):
+    with moe.grouped_dispatch(2, axis="data"):
+        assert moe.current_dispatch_groups() == 2
+        y_axis, aux_axis = moe.moe_apply(p, cfg, x, dispatch_groups=2)
+    assert torch.equal(y_axis, y) and torch.equal(aux_axis, aux)
+    from repro_torch.launch.mesh import make_test_mesh
+    with make_test_mesh(2, 1, device="cpu"):
         with moe.grouped_dispatch(2, axis="data"):
-            pass
+            assert torch.equal(moe.moe_apply(p, cfg, x, 2)[0], y)
+        with pytest.raises(ValueError, match="not an axis"):
+            with moe.grouped_dispatch(2, axis="expert"):
+                moe.moe_apply(p, cfg, x, 2)

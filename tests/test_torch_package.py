@@ -158,8 +158,8 @@ def test_registries_name_what_the_slice_carries():
 def test_unported_stages_raise_naming_the_roadmap(value):
     """Every name of the reference's FAULTS registry resolves in the port
     and runs on both engines and both backends, and `repro.faults` is
-    ported whole (the node-sharded faulty mixer too); what still raises,
-    naming the ROADMAP, is the LM stack's production meshes (item 5)."""
+    ported whole (the node-sharded faulty mixer too); the LM stack's
+    production meshes, once refused, are ported (of ``meta`` positions)."""
     import repro_torch.faults as faults
     from repro.faults import FAULTS
     assert value in FAULTS.names() and value in faults.FAULTS.names()
@@ -175,9 +175,9 @@ def test_unported_stages_raise_naming_the_roadmap(value):
     from repro_torch.api.shard_node import ShardedSparseMixer
     from repro_torch.launch import mesh
     assert issubclass(faults.FaultyShardedSparseMixer, ShardedSparseMixer)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1 item 5"):
-        mesh.make_production_mesh()
+    prod = mesh.make_production_mesh()
+    assert prod.shape == {"data": 16, "model": 16}
+    assert prod.device_type == "meta"
 
 
 def test_dist_engine_is_not_ported():
@@ -259,8 +259,8 @@ def test_package_exports_the_runner_surface():
     """`repro_torch.metrics` carries the names `repro.metrics` does;
     `repro_torch.api` those of `repro.api` (the Pallas backend's place is
     the cuda backend's); `repro_torch.launch` has every module of
-    `repro.launch` but the multi-device and LM ones, with `op_cost` for
-    `hlo_cost`."""
+    `repro.launch` but `hlo_analysis` (ROADMAP queue 1 item 5 part 4),
+    with `op_cost` for `hlo_cost`."""
     import pkgutil
 
     import repro.api as japi
@@ -276,7 +276,7 @@ def test_package_exports_the_runner_surface():
     assert api.sweep is repro_torch.sweep.sweep
     mods = lambda pkg: {m.name for m in pkgutil.iter_modules(  # noqa: E731
         pkg.__path__)}
-    left = {"hlo_analysis", "serve_lm"}           # queue 1 item 5
+    left = {"hlo_analysis"}                       # queue 1 item 5 part 4
     assert mods(launch) == (mods(jlaunch) - left - {"hlo_cost"}) | \
         {"op_cost"}
     import repro.launch.mesh as jmesh
@@ -287,17 +287,30 @@ def test_package_exports_the_runner_surface():
     assert repro_torch.metrics is metrics
 
 
-@pytest.mark.parametrize("name,args", [("make_production_mesh", ()),
-                                       ("make_test_mesh", ()),
-                                       ("gossip_axes", (None,)),
-                                       ("gossip_nodes", (None,)),
-                                       ("data_axes_for_batch", (None,))])
-def test_lm_production_meshes_raise_naming_item_5(name, args):
-    """The device meshes of the node and seed axes are ported; the LM
-    stack's production meshes (ROADMAP queue 1 item 5) raise, naming it."""
+def _meta_mesh():
     from repro_torch.launch import mesh
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
-        getattr(mesh, name)(*args)
+    return mesh.make_production_mesh()
+
+
+@pytest.mark.parametrize("name,args,want", [
+    ("make_production_mesh", (), {"data": 16, "model": 16}),
+    ("make_test_mesh", (), {"data": 4, "model": 2}),
+    ("gossip_axes", (_meta_mesh,), ("data",)),
+    ("gossip_nodes", (_meta_mesh,), 16),
+    ("data_axes_for_batch", (_meta_mesh,), ())])
+def test_lm_production_meshes_are_ported(name, args, want):
+    """The LM stack's meshes, once refused naming ROADMAP queue 1 item 5,
+    are ported: the production mesh of ``meta`` positions (counted, not
+    run), the test mesh (``cpu`` shards here) and the three functions of
+    the gossip layout (tests/test_torch_sharding.py holds each to the
+    reference)."""
+    from repro_torch.launch import mesh
+    fn = getattr(mesh, name)
+    got = (fn(*[a() for a in args]) if args else
+           fn(device="cpu") if name == "make_test_mesh" else fn())
+    if isinstance(got, mesh.Mesh):
+        got = got.shape
+    assert got == want
 
 
 def _public(module) -> set:
@@ -315,7 +328,8 @@ def _public(module) -> set:
 # package -> the reference's names the port does not carry, and why
 _LEFT_OUT = {
     "core": set(),
-    "data": {"TokenStream", "lm_batches"},            # queue 1 item 5: LM
+    "data": set(),
+    "sharding": set(),
     "kernels": {"LANE", "SUBLANE", "DEFAULT_BLOCK_COLS"},  # TPU tiling
     "configs": set(),
     "configs.social_linear": set(),
@@ -324,9 +338,9 @@ _LEFT_OUT = {
 
 @pytest.mark.parametrize("package", list(_LEFT_OUT))
 def test_paper_path_packages_export_the_reference_names(package):
-    """`__all__` of core, data, kernels and configs is the reference's but
-    for the LM stack's names (ROADMAP queue 1 item 5) and the TPU tiling
-    constants; every exported name resolves."""
+    """`__all__` of core, data, sharding, kernels and configs is the
+    reference's but for the TPU tiling constants; every exported name
+    resolves."""
     import importlib
     mine = importlib.import_module(f"repro_torch.{package}")
     ref = importlib.import_module(f"repro.{package}")
