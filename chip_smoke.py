@@ -245,6 +245,24 @@ Phases (any failure raises, and the script exits non-zero):
                bound; prefill at B = 1, T = 2,048 with head_pad=16 within
                the bound of the plain one, the same argmax, and the
                placement-only context managers bit for bit.
+22. LM dry-run — (b) minicpm-2b's gossip step of 21b (published
+               width, 8 of 40 layers, 4 nodes x B 2 x T 512, bf16) and
+               qwen2-7b's prefill at B 1 x T 2,048 (published config),
+               each counted through the dry-run's path on cuda:0 and on
+               meta: the two counts equal op by op; then each step's time
+               on the card (median and spread) beside two bounds over the
+               counted flops, the roofline (memory term: the bytes the
+               step needs, from its shapes) and the eager-op budget
+               (memory term: the counted op sequence's bytes), and their
+               shares, with the card's name and power limit; after (b),
+               (a) ``python -m repro_torch.launch.dryrun --all`` in a
+               process of its own, beside (c): every architecture x input
+               shape counted on meta tensors on the 16 x 16 mesh, each
+               cell ok or skipped as the reference skips it, the wall
+               time printed; (c) the gossip LM example's
+               three runs (`repro_torch.figures.gossip_lm_training`: eps
+               inf, eps 1, all-reduce AdamW; minicpm-2b reduced, 4 nodes,
+               60 steps) with finite losses, ce start and end, wall.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line (time,
 bound, plain-version time and launches of every kernel), and last
@@ -3677,6 +3695,212 @@ def lm_train_serve_phase(card: str) -> dict:
             "minicpm": lm_minicpm_phase(card), "serve": lm_serve_phase(card)}
 
 
+# -- 22. the LM dry-run, its roofline, the gossip LM example -----------------
+
+ROOF_STEPS = 5              # timed calls of each 22b step after a warm-up
+EXAMPLE_ARCH, EXAMPLE_NODES, EXAMPLE_STEPS = "minicpm-2b", 4, 60
+
+
+def lm_dryrun_start(tmp: str):
+    """Phase 22a's process: ``python -m repro_torch.launch.dryrun --all``
+    (meta tensors only, on the host's CPU), records into ``tmp``; it runs
+    beside 22c, after 22b's timed steps."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--out", tmp], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=env, cwd=str(ROOT)), time.perf_counter()
+
+
+def lm_dryrun_all(proc, t0: float, tmp: str, card: str) -> dict:
+    """Phase 22a, its end: every architecture x input shape on the 16 x 16
+    mesh ``ok``, or skipped where `steps.skip_reason` skips it; each ok
+    record's collectives on the model axis unknown (None), never 0."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models.config import INPUT_SHAPES
+    text, _ = proc.communicate(timeout=900)
+    wall = time.perf_counter() - t0
+    rc = proc.returncode
+    recs = [json.loads(f.read_text()) for f in sorted(Path(tmp).iterdir())]
+    status = {(r["arch"], r["shape"]): r["status"] for r in recs}
+    want = {(a, sh): "skipped" if steps_lib.skip_reason(
+        get_config(a), INPUT_SHAPES[sh]) else "ok"
+        for a in ARCH_IDS for sh in INPUT_SHAPES}
+    require(rc == 0 and status == want, f"lm dry-run --all: rc {rc}, "
+            f"cells {sorted(k for k in want if status.get(k) != want[k])} "
+            f"off; {text[-1500:]}")
+    ok = [r for r in recs if r["status"] == "ok"]
+    require(all(r["collectives"]["model_axis_bytes"] is None and
+                r["memory_per_device"]["temp"] is None and
+                r["hlo_flops"] > 0 and "counted_as" in r for r in ok),
+            "lm dry-run --all: a record counts the model axis or misses "
+            "its count")
+    own = [line for line in text.splitlines() if line.startswith("[all]")]
+    slowest = sorted(ok, key=lambda r: -r["compile_s"])[:3]
+    log(f"lm dry-run --all (meta tensors, 16x16 mesh, gossip; its own "
+        f"process, beside 22c): {len(ok)} ok, {len(recs) - len(ok)} "
+        f"skipped as the reference skips, in {wall:.1f} s wall "
+        f"({own[-1] if own else 'no summary line'}; slowest counts "
+        f"{[(r['arch'], r['shape'], r['compile_s']) for r in slowest]}) "
+        f"| {card}")
+    return {"wall_s": wall, "ok": len(ok), "skipped": len(recs) - len(ok)}
+
+
+def _roof_calls() -> list:
+    """22b's two calls: (name, config, input shape, mesh shape)."""
+    from repro_torch.models.config import ShapeConfig
+    return [
+        (f"{MINICPM} gossip step", _lm_config(MINICPM,
+                                             num_layers=MINICPM_LAYERS),
+         ShapeConfig("train_512", MINICPM_T, MINICPM_NODES * MINICPM_B,
+                     "train"), (MINICPM_NODES, 1)),
+        (f"{QWEN} prefill", _lm_config(QWEN),
+         ShapeConfig("prefill_2k", PREFILL_T, 1, "prefill"), (1, 1))]
+
+
+def lm_roofline(card: str, smi: str) -> dict:
+    """Phase 22b: each call of `_roof_calls` counted through
+    ``dryrun_one``'s path (`dryrun.lm_program`, `dryrun.count_lm_step`)
+    once on a mesh of ``cuda:0`` (the step run) and once on a meta mesh
+    (the loop shortcut: one node for all, representative layers); the two
+    counts equal op by op. Then the card's time of the step (host clock
+    around a synchronised call, after a warm-up; the median of ROOF_STEPS,
+    and their spread) beside two bounds (`hlo_analysis.roofline_terms`,
+    the whole step: the card runs every node), each over the counted
+    flops: the roofline, whose memory term is the bytes the step needs
+    however it is fused (`dryrun.needed_bytes`, from the shapes), and the
+    eager-op budget, whose memory term is op_cost's count of the op
+    sequence as it runs (every op's operands and results). Their shares
+    (bound / time): the roofline share, and the eager-op share."""
+    import torch
+    from repro_torch.device import synchronize
+    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.launch.mesh import make_mesh
+    dev = torch.device(DEVICE)
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    out = {}
+    try:
+        for name, cfg, shape, mesh_shape in _roof_calls():
+            size = mesh_shape[0] * mesh_shape[1]
+            counts = {}
+            for where in ("meta", DEVICE):
+                mesh = make_mesh(mesh_shape, ("data", "model"),
+                                 devices=[where] * size)
+                program = dryrun.lm_program(cfg, shape, mesh)
+                result, cost, count_s = dryrun.count_lm_step(program, mesh)
+                if where == "meta":
+                    need = dryrun.needed_bytes(program, result, cfg, shape)
+                del result
+                counts[where] = (cost, count_s)
+            differ = _count_differences(counts[DEVICE][0], counts["meta"][0])
+            require(not differ, f"lm roofline {name}: the card's count and "
+                    f"the meta count differ at {differ[:6]}")
+            cost = counts[DEVICE][0]
+            fn, args = program["fn"], program["args"]
+            times = []
+            for i in range(ROOF_STEPS + 1):         # the first: warm-up
+                synchronize(dev)
+                t0 = time.perf_counter()
+                result = fn(*args)
+                synchronize(dev)
+                if i:
+                    times.append(time.perf_counter() - t0)
+                del result
+            del program, fn, args
+            torch.cuda.empty_cache()
+            step = statistics.median(times)
+            bounds = {}
+            for kind, nbytes in (("roofline", need),
+                                 ("eager-op", cost.hbm_bytes)):
+                terms = hlo_analysis.roofline_terms(cost.flops, nbytes, 0.0)
+                bounds[kind] = (max(terms["t_compute_s"],
+                                    terms["t_memory_s"]), terms)
+            (roof, rterms), (eager, eterms) = bounds["roofline"], \
+                bounds["eager-op"]
+            top = sorted(cost.ops.items(), key=lambda kv: -kv[1]["bytes"])[:3]
+            log(f"lm roofline {name} ({cfg.num_layers} layers, d"
+                f"{cfg.d_model}, {cfg.dtype}; B={shape.global_batch} T="
+                f"{shape.seq_len}, mesh {mesh_shape}): card count == meta "
+                f"count op by op ({len(cost.ops)} ops; counted in "
+                f"{counts[DEVICE][1]:.1f} s on the card, "
+                f"{counts['meta'][1]:.1f} s on meta): {cost.flops:.6g} "
+                f"flops (compute {rterms['t_compute_s'] * 1e3:.2f} ms at "
+                f"{hlo_analysis.PEAK_FLOPS:.4g} FLOP/s); step median "
+                f"{step * 1e3:.2f} ms of {[t * 1e3 for t in times]} "
+                f"(spread {(max(times) - min(times)) * 1e3:.2f} ms); "
+                f"roofline: {need:.6g} needed bytes (memory "
+                f"{rterms['t_memory_s'] * 1e3:.2f} ms at "
+                f"{hlo_analysis.HBM_BW:.4g} B/s), bound {roof * 1e3:.2f} ms "
+                f"({rterms['dominant']}), roofline share {roof / step:.4f}; "
+                f"eager-op budget: {cost.hbm_bytes:.6g} bytes (memory "
+                f"{eterms['t_memory_s'] * 1e3:.2f} ms), bound "
+                f"{eager * 1e3:.2f} ms ({eterms['dominant']}), eager-op "
+                f"share {eager / step:.4f}; most bytes "
+                f"{[(k, round(r['bytes'] / cost.hbm_bytes, 3)) for k, r in top]}"
+                f" | {smi}")
+            out[name] = {"flops": cost.flops, "bytes": cost.hbm_bytes,
+                         "needed_bytes": need, "bound_ms": roof * 1e3,
+                         "eager_bound_ms": eager * 1e3, "step_ms": step * 1e3,
+                         "times_ms": [t * 1e3 for t in times],
+                         "share": roof / step, "eager_share": eager / step,
+                         "dominant": rterms["dominant"]}
+    finally:
+        torch.cuda.memory._set_allocator_settings(
+            "expandable_segments:False")
+    return out
+
+
+def lm_example_phase(card: str) -> dict:
+    """Phase 22c: the gossip LM example's three runs
+    (`repro_torch.figures.gossip_lm_training`) at its defaults (minicpm-2b
+    reduced, 4 nodes, 60 steps; B 2 a node, T 128, lam 1e-5) on the card:
+    finite losses; each run's ce start and end (means of the first and
+    last five steps) and wall."""
+    import contextlib
+    import io
+    from repro_torch.figures import gossip_lm_training as example
+    out = {}
+    for name, kw in example.runs().items():
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = example.run_one(EXAMPLE_ARCH, EXAMPLE_NODES, EXAMPLE_STEPS,
+                                  device=DEVICE, **kw)
+        wall = time.perf_counter() - t0
+        ce = [h["ce"] for h in res["history"]]
+        losses = [h["loss"] for h in res["history"]]
+        require(len(ce) == EXAMPLE_STEPS and all(
+            math.isfinite(v) for v in ce + losses),
+            f"lm example {name}: {len(ce)} steps, losses finite "
+            f"{all(math.isfinite(v) for v in ce + losses)}")
+        start, end = statistics.mean(ce[:5]), statistics.mean(ce[-5:])
+        log(f"lm example {name} ({EXAMPLE_ARCH} reduced, {EXAMPLE_NODES} "
+            f"nodes, {EXAMPLE_STEPS} steps): ce start {start:.4f} end "
+            f"{end:.4f} (improvement {start - end:+.4f}); {wall:.1f} s "
+            f"= {EXAMPLE_STEPS / wall:.1f} steps/s | {card}")
+        out[name] = {"ce_start": start, "ce_end": end, "wall_s": wall}
+    return out
+
+
+def lm_dryrun_phase(card: str, smi: str) -> dict:
+    """Phase 22: the LM stack's first roofline shares (22b), then the LM
+    dry-run (22a, in its own process) beside the gossip LM example (22c),
+    so no host work of 22a's shares the clock of 22b's timed steps."""
+    import tempfile
+    roofline = lm_roofline(card, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        proc, t0 = lm_dryrun_start(tmp)
+        try:
+            example = lm_example_phase(card)
+            dry = lm_dryrun_all(proc, t0, tmp, card)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {"dryrun": dry, "roofline": roofline, "example": example}
+
+
 PATHS = {"round_stats": "main, serve", "round_update": "main, serve",
          "dual_step": "hybrid (phase 6, complete, time_varying, faults)",
          "pdomd_update": "ops", "hinge_grad": "ops"}
@@ -3713,6 +3937,7 @@ def main() -> int:
     ablations = ablations_phase(card)
     lm_phase(card)
     lm_train_serve_phase(card)
+    lm_dryrun_phase(card, smi)
     hybrid = {"hybrid": launches["dual_step"],
               **{name: run["launches"]["dual_step"]
                  for name, run in topologies.items()

@@ -35,13 +35,7 @@ from repro_torch.api.rules import LocalRule
 from repro_torch.api.streams import Stream
 from repro_torch.core.omd import OMDConfig
 
-__all__ = ["RunSpec", "not_ported"]
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet; it waits in ROADMAP "
-        "queue 1 (use the JAX package `repro` meanwhile)")
+__all__ = ["RunSpec"]
 
 
 @dataclasses.dataclass(frozen=True)

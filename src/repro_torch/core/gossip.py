@@ -39,7 +39,7 @@ from repro_torch.api.mixers import Mixer, ring_write
 from repro_torch.api.rules import LocalRule, OMDLassoRule, StepContext
 from repro_torch.core import prox, tree
 from repro_torch.core.omd import OMDConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import MetaGenerator, shape_device
 
 __all__ = ["GossipState", "GossipDP", "gossip_mix_tree", "per_node_clip"]
 
@@ -135,8 +135,10 @@ class GossipDP:
              device: str | torch.device = "cuda") -> GossipState:
         """State at round 0 on ``device`` (CUDA unless the caller asks for
         the CPU): theta from the node-stacked ``node_params`` as float32,
-        the noise generator seeded from ``seed``."""
-        dev = resolve_device(device)
+        the noise generator seeded from ``seed``. ``device="meta"`` builds
+        a state of shapes for the dry-run's count, its generator a
+        `MetaGenerator` (shape-only noise)."""
+        dev = shape_device(device)
         theta = tree.tree_map(
             lambda p: self.local_rule.init_state(
                 torch.as_tensor(p).to(device=dev, dtype=torch.float32)),
@@ -147,7 +149,8 @@ class GossipDP:
             history = tree.tree_map(
                 lambda th: torch.zeros((depth,) + tuple(th.shape),
                                        dtype=th.dtype, device=dev), theta)
-        gen = torch.Generator(device=dev)
+        gen = MetaGenerator() if dev.type == "meta" else \
+            torch.Generator(device=dev)
         gen.manual_seed(int(seed))
         return GossipState(theta=theta, t=0, generator=gen, history=history)
 

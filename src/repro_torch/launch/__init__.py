@@ -13,7 +13,8 @@ device meshes that shard a run's node or seed axis, and the LM stack's
 production meshes (``meta`` positions: counted, not run). The LM stack:
 ``python -m repro_torch.launch.train --arch`` trains an architecture with
 the gossip or all-reduce step of `launch.steps`, and ``python -m
-repro_torch.launch.serve_lm`` decodes greedily. Only the LM dry-run
-(``dryrun --arch/--all``) and `hlo_analysis` wait, in ROADMAP queue 1
-item 5 part 4.
+repro_torch.launch.serve_lm`` decodes greedily; ``python -m
+repro_torch.launch.dryrun --arch/--shape`` or ``--all`` counts its steps on
+``meta`` tensors at the production meshes, and `launch.hlo_analysis` gives
+the counts their H100 roofline terms and the strategies' exchanged bytes.
 """

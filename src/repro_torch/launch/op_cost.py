@@ -27,6 +27,11 @@ The mode is entered only around the counted call, on the calling thread
 (dispatch modes are thread-local), so another thread's ops are never
 counted.
 
+Fixed-trip loops (`repro_torch.core.loops.loop`): a count is a
+`loops.tracking` scope, so a loop over ``meta`` tensors inside it runs its
+representative iterations, each op weighted by the iterations it stands
+for; over a real tensor every iteration runs, and counts the same.
+
 >>> import torch
 >>> a = torch.ones(64, 32)
 >>> _, c = count(lambda x: x @ x.t() + 1.0, a)
@@ -45,6 +50,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
+from repro_torch.core import loops
 from repro_torch.kernels import work as kernel_work
 
 __all__ = ["OpCost", "count"]
@@ -75,14 +81,16 @@ class OpCost:
     collective_bytes: float = 0.0
     ops: dict = dataclasses.field(default_factory=dict)
 
-    def add(self, name: str, flops: float, nbytes: float) -> None:
+    def add(self, name: str, flops: float, nbytes: float,
+            weight: int = 1) -> None:
+        """One call of ``name`` (``weight`` alike calls)."""
         row = self.ops.setdefault(name, {"calls": 0, "flops": 0.0,
                                          "bytes": 0.0})
-        row["calls"] += 1
-        row["flops"] += flops
-        row["bytes"] += nbytes
-        self.flops += flops
-        self.hbm_bytes += nbytes
+        row["calls"] += weight
+        row["flops"] += flops * weight
+        row["bytes"] += nbytes * weight
+        self.flops += flops * weight
+        self.hbm_bytes += nbytes * weight
 
     def scaled(self, k: int) -> "OpCost":
         """The count of ``k`` such calls (a chunk of ``k`` rounds)."""
@@ -137,14 +145,20 @@ def _op_flops(name: str, func, args, outs) -> float:
 
 class _Counter:
     """The running count: aten ops from the dispatch mode, kernel rows from
-    the wrappers (`kernels.work.scope`); ``mask`` > 0 inside a wrapper."""
+    the wrappers (`kernels.work.scope`); ``mask`` > 0 inside a wrapper.
+    ``loops`` weighs each op by the loop iterations it stands for."""
 
     def __init__(self):
         self.cost = OpCost()
         self.mask = 0
+        self.loops = None
+
+    def weight(self) -> int:
+        return self.loops.weight()
 
     def kernel(self, name: str, nbytes: int, flops: int) -> None:
-        self.cost.add(f"kernel.{name}", float(flops), float(nbytes))
+        self.cost.add(f"kernel.{name}", float(flops), float(nbytes),
+                      self.weight())
 
     def op(self, func, args, kwargs, out) -> None:
         if func.is_view:
@@ -155,7 +169,7 @@ class _Counter:
         outs = _tensors(out)
         ins = _tensors((args, kwargs))
         self.cost.add(f"aten.{name}", _op_flops(name, func, args, outs),
-                      float(_nbytes(ins) + _nbytes(outs)))
+                      float(_nbytes(ins) + _nbytes(outs)), self.weight())
 
 
 class _CountingMode(TorchDispatchMode):
@@ -175,6 +189,8 @@ def count(fn, *args, **kwargs):
     """``(fn(*args, **kwargs), OpCost)``: run ``fn`` once and count what
     it does (see the module docstring)."""
     counter = _Counter()
-    with kernel_work.counting(counter), _CountingMode(counter):
+    with loops.tracking(counter.op) as tracker, \
+            kernel_work.counting(counter), _CountingMode(counter):
+        counter.loops = tracker
         out = fn(*args, **kwargs)
     return out, counter.cost

@@ -22,10 +22,9 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data.social import seeded_generator
-from repro_torch.device import synchronize
+from repro_torch.device import shape_device, synchronize
 from repro_torch.launch import steps
 from repro_torch.models import build_model
-from repro_torch.models.transformer import model_device
 
 __all__ = ["serve", "main"]
 
@@ -40,7 +39,7 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     if smoke:
         cfg = cfg.reduced()
     model = build_model(cfg, device)
-    dev = model_device(device)
+    dev = shape_device(device)
     # independent randomness for params, prompts and priming frames —
     # reusing one seed would correlate the weights with the inputs
     params = model.init(seeded_generator(dev, seed, 0))

@@ -45,6 +45,7 @@ from repro_torch.core import tree
 from repro_torch.core.gossip import GossipDP
 from repro_torch.data.social import round_seed
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.core import loops
 from repro_torch.models import attention, moe, transformer
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.optim import adamw, apply_updates, warmup_cosine
@@ -147,10 +148,15 @@ def _loss_and_grads(loss_fn, params, batch):
     leaves, spec = tree.flatten(params)
     live = [leaf.detach().requires_grad_(True) for leaf in leaves]
     loss, metrics = loss_fn(tree.unflatten(spec, live), batch)
-    grads = torch.autograd.grad(loss, live, allow_unused=True,
-                                materialize_grads=True)
+    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    # materialize_grads=True's zeros, but for the parameters of layers a
+    # dry-run's representative layer stood for: what they stand in for
+    # was counted, so they are free stand-ins too
+    grads = [g if g is not None else
+             torch.empty_like(p) if loops.stands_in(p) else
+             torch.zeros_like(p) for g, p in zip(grads, live)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-            list(grads))
+            grads)
 
 
 def _per_node(loss_fn, w_model, batch, add):
@@ -158,7 +164,8 @@ def _per_node(loss_fn, w_model, batch, add):
     handed to ``add(i, grads)``. Returns ((n,) losses, {k: (n,)})."""
     leaves, spec = tree.flatten(w_model)
     losses, mets = [], []
-    for i in range(leaves[0].shape[0]):
+    nodes = loops.loop(leaves[0].shape[0], leaves[0], independent=True)
+    for i in nodes:
         loss, met, grads = _loss_and_grads(
             loss_fn, tree.unflatten(spec, [leaf[i] for leaf in leaves]),
             tree.tree_map(lambda b: b[i], batch))
@@ -166,6 +173,7 @@ def _per_node(loss_fn, w_model, batch, add):
         del grads
         losses.append(loss)
         mets.append(met)
+    losses, mets = nodes.full(losses), nodes.full(mets)
     return torch.stack(losses), {k: torch.stack([m[k] for m in mets])
                                  for k in mets[0]}
 
@@ -224,12 +232,14 @@ def make_gossip_train_step(model, gdp: GossipDP, microbatches: int = 1,
 
         mb_batch = tree.tree_map(to_mb, batch)
         losses, mets = [], []
-        for j in range(M):
+        chunks = loops.loop(M, out[0], independent=True)
+        for j in chunks:
             l_j, m_j = _per_node(model.loss_fn, w_model,
                                  tree.tree_map(lambda b: b[:, j], mb_batch),
                                  add)
             losses.append(l_j)
             mets.append(m_j)
+        losses, mets = chunks.full(losses), chunks.full(mets)
         loss = torch.mean(torch.stack(losses), dim=0)
         metrics = {k: torch.mean(torch.stack([m[k] for m in mets]), dim=0)
                    for k in mets[0]}
@@ -318,7 +328,8 @@ def make_allreduce_train_step(model, recipe: TrainRecipe,
             grads = [torch.zeros(p.shape, dtype=F32, device=p.device)
                      for p in tree.leaves(state.params)]
             losses, mets = [], []
-            for j in range(M):
+            chunks = loops.loop(M, grads[0], independent=True)
+            for j in chunks:
                 l_j, m_j, g_j = _loss_and_grads(
                     model.loss_fn, state.params,
                     tree.tree_map(lambda b: b[j], mb_batch))
@@ -326,6 +337,7 @@ def make_allreduce_train_step(model, recipe: TrainRecipe,
                     acc += g.to(F32)
                 losses.append(l_j)
                 mets.append(m_j)
+            losses, mets = chunks.full(losses), chunks.full(mets)
             grads = [g / M for g in grads]
             loss = torch.mean(torch.stack(losses))
             metrics = {k: torch.mean(torch.stack([m[k] for m in mets]))

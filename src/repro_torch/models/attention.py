@@ -14,7 +14,9 @@ Design notes
   the input dtype before p @ v, as the reference casts them. A key chunk
   wholly after a query chunk is skipped: there the reference's update
   multiplies by exp(0) = 1 and adds exp(-1e30 - m) = 0, so skipping it
-  changes no value.
+  changes no value. The chunk loops are `repro_torch.core.loops.loop`s:
+  a dry-run counts one query chunk of each key-chunk count, and a few key
+  chunks of each.
 * ``flash_vjp(True)`` routes blockwise attention through `_FlashAttention`,
   whose forward saves only (o, m, l) and whose backward recomputes the
   score tiles chunk by chunk (the reference's ``_flash_bwd``).
@@ -36,18 +38,21 @@ Design notes
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Optional
 
 import torch
 
+from repro_torch.core import loops
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding.rules import check_axis
 
 __all__ = ["BLOCKWISE_THRESHOLD", "Q_CHUNK", "K_CHUNK", "NEG_INF",
            "sequence_parallel", "head_padding", "batch_parallel",
-           "flash_vjp", "rope_inv_freq", "default_positions", "apply_rope",
+           "flash_vjp", "flash_query_chunk", "rope_inv_freq",
+           "default_positions", "apply_rope",
            "attn_init", "attention_full", "init_attn_cache",
            "attention_decode"]
 
@@ -194,7 +199,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
         assert sum(sections) == inv_freq.shape[0], (sections, inv_freq.shape)
         sec_id = torch.repeat_interleave(
             torch.arange(3, device=x.device),
-            torch.tensor(sections, device=x.device))              # (hd/2,)
+            torch.tensor(sections, device=x.device),
+            output_size=inv_freq.shape[0])                        # (hd/2,)
         pos = positions.to(F32)[..., sec_id]    # (B, T, hd/2): per-frequency
         angles = pos * inv_freq[None, None, :]
     else:
@@ -295,6 +301,12 @@ def _tile_mask(qi, kj, q_chunk, k_chunk, S, window, device):
     return mask
 
 
+def _key_chunks(qi: int, q_chunk: int, k_chunk: int, nk: int) -> int:
+    """How many key chunks query chunk ``qi`` reads: those not wholly in
+    its future (the rest would be exact no-ops, see the module notes)."""
+    return min(nk, ((qi + 1) * q_chunk - 1) // k_chunk + 1)
+
+
 def _blockwise_fwd_stats(q, k, v, window, softcap, q_chunk, k_chunk):
     """Causal blockwise attention (positions are arange: self-attention),
     with the per-row (m, l) stats: o (B,T,H,hd), m and l (nq,B,Kv,g,qc)."""
@@ -311,16 +323,17 @@ def _blockwise_fwd_stats(q, k, v, window, softcap, q_chunk, k_chunk):
     kp = _pad_time(k, pad_k).reshape(B, nk, k_chunk, Kv, hd)
     vp = _pad_time(v, pad_k).reshape(B, nk, k_chunk, Kv, hd)
     outs, ms, ls = [], [], []
-    for qi in range(nq):
+    n_k = functools.partial(_key_chunks, q_chunk=q_chunk, k_chunk=k_chunk,
+                            nk=nk)
+    q_loop = loops.loop(nq, q, key=n_k)
+    for qi in q_loop:
         q_blk = qp[:, qi]                           # (B, qc, Kv, g, hd)
         m = torch.full((B, Kv, g, q_chunk), NEG_INF, dtype=F32,
                        device=q.device)
         l = torch.zeros((B, Kv, g, q_chunk), dtype=F32, device=q.device)
         acc = torch.zeros((B, Kv, g, q_chunk, hd), dtype=F32,
                           device=q.device)
-        for kj in range(nk):
-            if kj * k_chunk > (qi + 1) * q_chunk - 1:
-                break                   # wholly future: an exact no-op
+        for kj in loops.loop(n_k(qi), q):
             s = _dot32("bqkgh,bskh->bkgqs", q_blk, kp[:, kj]) * scale
             s = _softcap(s, softcap)
             mask = _tile_mask(qi, kj, q_chunk, k_chunk, S, window, q.device)
@@ -336,8 +349,10 @@ def _blockwise_fwd_stats(q, k, v, window, softcap, q_chunk, k_chunk):
         outs.append(o.permute(0, 3, 1, 2, 4))           # (B, qc, Kv, g, hd)
         ms.append(m)
         ls.append(l)
-    o = torch.cat(outs, dim=1).reshape(B, Tq, Kv * g, hd)[:, :T]
-    return o.to(q.dtype), torch.stack(ms), torch.stack(ls)
+    o = torch.cat(q_loop.full(outs), dim=1).reshape(B, Tq, Kv * g,
+                                                    hd)[:, :T]
+    return (o.to(q.dtype), torch.stack(q_loop.full(ms)),
+            torch.stack(q_loop.full(ls)))
 
 
 def _blockwise_attention(q, k, v, window, softcap, q_chunk=Q_CHUNK,
@@ -371,13 +386,14 @@ def _flash_bwd(window, softcap, q_chunk, k_chunk, res, do):
     dk = torch.zeros((B, nk, k_chunk, Kv, hd), dtype=F32, device=q.device)
     dv = torch.zeros_like(dk)
     dqs = []
-    for qi in range(nq):
+    n_k = functools.partial(_key_chunks, q_chunk=q_chunk, k_chunk=k_chunk,
+                            nk=nk)
+    q_loop = loops.loop(nq, q, key=n_k)
+    for qi in q_loop:
         q_blk, do_blk = qp[:, qi], dop[:, qi].to(io_dtype)
         m_blk, l_blk, D_blk = ms[qi], ls[qi], D[qi]
         dq = torch.zeros((B, q_chunk, Kv, g, hd), dtype=F32, device=q.device)
-        for kj in range(nk):
-            if kj * k_chunk > (qi + 1) * q_chunk - 1:
-                break                   # wholly future: p = 0, no gradient
+        for kj in loops.loop(n_k(qi), q):     # wholly future: p = 0
             k_blk, v_blk = kp[:, kj], vp[:, kj]
             s = _dot32("bqkgh,bskh->bkgqs", q_blk, k_blk) * scale
             s = _softcap(s, softcap)
@@ -393,7 +409,7 @@ def _flash_bwd(window, softcap, q_chunk, k_chunk, res, do):
             dq = dq + _dot32("bkgqs,bskh->bqkgh", ds.to(io_dtype),
                              k_blk) * scale
         dqs.append(dq)
-    dq = torch.cat(dqs, dim=1).reshape(B, Tq, H, hd)[:, :T]
+    dq = torch.cat(q_loop.full(dqs), dim=1).reshape(B, Tq, H, hd)[:, :T]
     dk = dk.reshape(B, Sk, Kv, hd)[:, :S]
     dv = dv.reshape(B, Sk, Kv, hd)[:, :S]
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -426,6 +442,20 @@ def _flash_attention(q, k, v, window, softcap, q_chunk=Q_CHUNK,
 # flip to route blockwise attention through the flash backward
 _FLASH_VJP: list = [False]
 
+# the flash path's query chunk: the reference's dry-run flag ``bigq`` sets
+# its module's Q_CHUNK, which only its flash path reads at call time; the
+# port scopes the change
+_FLASH_Q_CHUNK: list = [Q_CHUNK]
+
+
+@contextlib.contextmanager
+def flash_query_chunk(q_chunk: int):
+    _FLASH_Q_CHUNK.append(q_chunk)
+    try:
+        yield
+    finally:
+        _FLASH_Q_CHUNK.pop()
+
 
 @contextlib.contextmanager
 def flash_vjp(enabled: bool = True):
@@ -457,7 +487,8 @@ def attention_full(p: dict, cfg: ModelConfig, x: torch.Tensor,
         pos = torch.arange(T, device=x.device)
         o = _full_attention(q, k, v, pos, pos, window, cfg.attn_logit_softcap)
     elif _FLASH_VJP[-1]:
-        o = _flash_attention(q, k, v, window, cfg.attn_logit_softcap)
+        o = _flash_attention(q, k, v, window, cfg.attn_logit_softcap,
+                             _FLASH_Q_CHUNK[-1])
     else:
         o = _blockwise_attention(q, k, v, window, cfg.attn_logit_softcap)
     o = _maybe_unpad_heads(o, cfg, H_orig, kv_padded)

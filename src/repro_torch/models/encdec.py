@@ -17,11 +17,12 @@ from typing import Optional
 
 import torch
 
+from repro_torch.device import shape_device
+from repro_torch.core import loops
 from repro_torch.models import attention, layers, mlp
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (Model, ce_loss, generator, layer,
-                                            model_device, remat, stack,
-                                            stacked_init)
+                                            remat, stack, stacked_init)
 from repro_torch.core.tree import tree_map
 
 __all__ = ["cross_attn_init", "cross_kv", "cross_attend", "build_encdec"]
@@ -118,7 +119,7 @@ def _dec_layer(p, cfg: ModelConfig, x, positions, mem_k, mem_v):
 
 def build_encdec(cfg: ModelConfig, device="cuda") -> Model:
     assert cfg.encoder_layers > 0
-    dev = model_device(device)
+    dev = shape_device(device)
 
     def init(key):
         gen = generator(key, dev)
@@ -144,7 +145,7 @@ def build_encdec(cfg: ModelConfig, device="cuda") -> Model:
         def enc_fn(lp, x):
             return _enc_layer(lp, cfg, x, positions)
 
-        for i in range(cfg.encoder_layers):
+        for i in loops.loop(cfg.encoder_layers, x):
             x = remat(cfg, enc_fn, layer(params["enc_layers"], i), x)
         return layers.apply_norm(cfg.norm, params["enc_norm"], x, cfg.norm_eps)
 
@@ -166,7 +167,7 @@ def build_encdec(cfg: ModelConfig, device="cuda") -> Model:
             k, v = cross_kv(lp["cross"], cfg, memory)
             return _dec_layer(lp, cfg, x, positions, k, v)
 
-        for i in range(cfg.num_layers):
+        for i in loops.loop(cfg.num_layers, x):
             x = remat(cfg, dec_fn, layer(params["dec_layers"], i), x)
         if last_only:
             x = x[:, -1:]
@@ -201,7 +202,8 @@ def build_encdec(cfg: ModelConfig, device="cuda") -> Model:
     def decode_step(params, cache, tokens, pos):
         x = layers.embed(params["embed"], tokens)
         new_self = []
-        for i in range(cfg.num_layers):
+        layer_loop = loops.loop(cfg.num_layers, x)
+        for i in layer_loop:
             lp, self_c = layer(params["dec_layers"], i), layer(cache["self"], i)
             xn = layers.apply_norm(cfg.norm, lp["ln1"], x, cfg.norm_eps)
             h, self_c = attention.attention_decode(lp["attn"], cfg, xn, pos,
@@ -213,7 +215,8 @@ def build_encdec(cfg: ModelConfig, device="cuda") -> Model:
             xn = layers.apply_norm(cfg.norm, lp["ln2"], x, cfg.norm_eps)
             x = x + mlp.mlp(lp["ffn"], cfg, xn)
             new_self.append(self_c)
-        return _logits(params, x), {**cache, "self": stack(new_self)}
+        return _logits(params, x), {**cache,
+                                    "self": stack(layer_loop.full(new_self))}
 
     return Model(cfg=cfg, init=init, apply=apply, loss_fn=loss_fn,
                  init_cache=init_cache, decode_step=decode_step,

@@ -18,6 +18,7 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import loops
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding.rules import check_axis
@@ -87,7 +88,10 @@ def _router(p, cfg: ModelConfig, xf: torch.Tensor):
     # Switch-style load-balance loss: E * sum_e f_e * P_e
     probs = torch.softmax(logits, dim=-1)
     E = cfg.num_experts
-    assign = F.one_hot(top_idx[:, 0], E).to(F32)  # primary assignment fraction
+    # primary assignment fraction (F.one_hot's values; one_hot itself
+    # takes other ops on each backend, this one the same ops on all)
+    assign = (top_idx[:, 0, None] == torch.arange(
+        E, device=top_idx.device)).to(F32)
     f_e = assign.mean(dim=0)
     P_e = probs.mean(dim=0)
     aux = E * torch.sum(f_e * P_e)
@@ -133,7 +137,8 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
         assert N % G == 0, (N, G)
         xg = x.reshape(G, 1, N // G, D)
         check_axis(_DISPATCH_AXIS[-1], "grouped_dispatch")
-        outs = [moe_apply(p, cfg, xg[i], 1) for i in range(G)]
+        groups = loops.loop(G, x)
+        outs = groups.full([moe_apply(p, cfg, xg[i], 1) for i in groups])
         y = torch.stack([o[0] for o in outs]).reshape(B, T, D)
         return y, torch.mean(torch.stack([o[1] for o in outs]))
 

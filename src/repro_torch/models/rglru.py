@@ -19,6 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import loops
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 
@@ -54,10 +55,11 @@ def rglru_apply(p: dict, x: torch.Tensor,
     """x (B, T, R) f32, h0 (B, R). Returns (h (B,T,R), h_last)."""
     a, b = _gates(p, x)
     h, hs = h0, []
-    for t in range(x.shape[1]):
+    steps = loops.loop(x.shape[1], x)
+    for t in steps:
         h = a[:, t] * h + b[:, t]
         hs.append(h)
-    return torch.stack(hs, dim=1), h
+    return steps.stack(hs, dim=1), h
 
 
 def rglru_step(p: dict, x1: torch.Tensor, h: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,8 @@ decay w_t = exp(-exp(w0 + lora(x))) and a bonus term u for the current
 token. Channel mixing: squared-ReLU FFN with token shift.
 
 The WKV recurrence is a loop over time in f32 (the reference's lax.scan,
-step for step). Decode carries (wkv_state (B,H,K,V), shift states) — O(1)
+step for step; `repro_torch.core.loops.loop`, so a dry-run counts
+one step of it per T). Decode carries (wkv_state (B,H,K,V), shift states) — O(1)
 per token.
 """
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import loops
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 
@@ -65,13 +67,14 @@ def _wkv_scan(r, k, v, w, u, state0):
     """
     S = state0
     ys = []
-    for t in range(r.shape[1]):
+    steps = loops.loop(r.shape[1], r)
+    for t in steps:
         r_t, k_t, v_t, w_t = r[:, t], k[:, t], v[:, t], w[:, t]  # (B,H,K)
         kv = k_t[..., :, None] * v_t[..., None, :]              # (B,H,K,K)
         ys.append(torch.einsum("bhk,bhkv->bhv", r_t,
                                S + u[None, :, :, None] * kv))
         S = w_t[..., :, None] * S + kv
-    return torch.stack(ys, dim=1), S                            # (B,T,H,K), (B,H,K,K)
+    return steps.stack(ys, dim=1), S          # (B,T,H,K), (B,H,K,K)
 
 
 def _shift(x, x_prev):

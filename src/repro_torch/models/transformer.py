@@ -25,6 +25,8 @@ functions:
 
 ``cfg.remat`` recomputes each layer's forward in the backward pass
 (`torch.utils.checkpoint`) while autograd records; it changes no value.
+The layer loops are `repro_torch.core.loops.loop`s (a dry-run counts
+the first, the last and one of each kind of middle layer, weighted).
 
 ``sp_residual(axis)`` is the reference's sequence-parallel residual
 stream, which shards the between-layer activations' time dim over
@@ -40,7 +42,8 @@ from typing import Any, NamedTuple, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import resolve_device
+from repro_torch.core import loops
+from repro_torch.device import shape_device
 from repro_torch.models import attention, layers, mlp, moe, rglru, rwkv6
 from repro_torch.models.config import ModelConfig
 from repro_torch.core.tree import tree_map
@@ -59,14 +62,6 @@ class Model(NamedTuple):
     init_cache: Any
     decode_step: Any
     prime_cache: Any = None  # enc-dec only: fill cross-attn K/V from encoder
-
-
-def model_device(device) -> torch.device:
-    """The model's device: `resolve_device`'s rule, plus "meta" (shapes
-    and dtypes only, no storage)."""
-    if torch.device(device).type == "meta":
-        return torch.device("meta")
-    return resolve_device(device)
 
 
 def generator(key, device: torch.device) -> torch.Generator:
@@ -104,7 +99,7 @@ def stack(trees: list):
 def remat(cfg: ModelConfig, fn, *args):
     """``fn(*args)``, recomputed in the backward pass under cfg.remat."""
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(loops.replayed(fn), *args, use_reentrant=False)
     return fn(*args)
 
 
@@ -248,7 +243,7 @@ def _is_homogeneous(cfg: ModelConfig) -> bool:
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
     kinds = layer_kinds(cfg)
     homogeneous = _is_homogeneous(cfg)
-    dev = model_device(device)
+    dev = shape_device(device)
 
     # ---- init ----
     def init(key) -> dict:
@@ -298,12 +293,15 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
             return _layer_apply(lp, cfg, kind, x, positions)
 
         auxes = []
-        for i in range(cfg.num_layers):
+        layer_loop = loops.loop(cfg.num_layers, x, key=kinds.__getitem__)
+        if not homogeneous:
+            layer_loop.stand_in(params["layers"])
+        for i in layer_loop:
             lp = layer(params["layers"], i) if homogeneous \
                 else params["layers"][i]
             x, a = remat(cfg, layer_fn, lp, kinds[i], x)
             auxes.append(a)
-        aux = torch.sum(torch.stack(auxes))
+        aux = torch.sum(torch.stack(layer_loop.full(auxes)))
         if last_only:
             x = x[:, -1:]
         return _logits(params, x), aux
@@ -328,13 +326,15 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
         """tokens (B, 1) int; pos (B,) absolute positions."""
         x = layers.embed(params["embed"], tokens)
         new_cache = []
-        for i in range(cfg.num_layers):
+        layer_loop = loops.loop(cfg.num_layers, x, key=kinds.__getitem__)
+        for i in layer_loop:
             if homogeneous:
                 lp, lc = layer(params["layers"], i), layer(cache, i)
             else:
                 lp, lc = params["layers"][i], cache[i]
             x, c = _layer_decode(lp, cfg, kinds[i], x, pos, lc)
             new_cache.append(c)
+        new_cache = layer_loop.full(new_cache)
         return _logits(params, x), (stack(new_cache) if homogeneous
                                     else new_cache)
 

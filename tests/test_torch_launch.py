@@ -6,8 +6,9 @@ prints the reference's line and returns the run of its recipe's spec bit
 for bit; `TrainRecipe.to_runspec` builds the reference's spec field for
 field; `dryrun_stream` records the reference's keys (read from its source:
 importing `repro.launch.dryrun` would set XLA's host-device count for the
-whole test process). The LM modes (``--arch``, ``--all``) raise, naming
-ROADMAP queue 1 item 5.
+whole test process). The LM dry-run (``--arch --shape``, ``--all``) is
+held to the reference in tests/test_torch_dryrun_lm.py; here its CLI
+writes a record and refuses ``--arch`` alone as the reference does.
 """
 import ast
 import contextlib
@@ -127,15 +128,29 @@ def test_train_cli_needs_a_mode(capsys):
     assert "one of --arch or --stream" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("call", [
-    lambda: dryrun.main(["--arch", "minicpm-2b", "--shape", "train_4k"]),
-    lambda: dryrun.main(["--all"])])
-def test_the_lm_modes_raise_naming_the_queue(call):
-    """The LM dry-run still waits (ROADMAP queue 1 item 5 part 4); the LM
-    training mode is ported (the two tests below)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1") as e:
-        call()
-    assert "item 5 part 4" in str(e.value)
+@pytest.mark.parametrize("argv", [
+    ["--arch", "minicpm-2b", "--shape", "decode_32k"],
+    ["--arch", "minicpm-2b"]])
+def test_the_lm_modes_raise_naming_the_queue(argv, tmp_path, monkeypatch,
+                                             capsys):
+    """The LM dry-run is ported (tests/test_torch_dryrun_lm.py holds it to
+    the reference): ``--arch --shape`` counts the step on shapes and
+    writes its record; ``--arch`` alone raises the reference's usage
+    error, naming what is missing."""
+    monkeypatch.setattr(dryrun, "OUT_DIR", str(tmp_path))
+    if "--shape" in argv:
+        assert dryrun.main(argv) == 0
+        rec = json.loads((tmp_path / "minicpm-2b__decode_32k__16x16__"
+                          "gossip.json").read_text())
+        assert rec["status"] == "ok" and rec["hlo_flops"] > 0
+        assert "[ok] minicpm-2b x decode_32k" in capsys.readouterr().out
+        return
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(argv)
+    assert e.value.code == 2
+    assert "--arch and --shape required unless --all" in \
+        capsys.readouterr().err
+    assert not list(tmp_path.iterdir())
 
 
 @pytest.mark.parametrize("strategy", ["gossip", "allreduce"])

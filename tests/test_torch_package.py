@@ -259,8 +259,7 @@ def test_package_exports_the_runner_surface():
     """`repro_torch.metrics` carries the names `repro.metrics` does;
     `repro_torch.api` those of `repro.api` (the Pallas backend's place is
     the cuda backend's); `repro_torch.launch` has every module of
-    `repro.launch` but `hlo_analysis` (ROADMAP queue 1 item 5 part 4),
-    with `op_cost` for `hlo_cost`."""
+    `repro.launch`, with `op_cost` for `hlo_cost`."""
     import pkgutil
 
     import repro.api as japi
@@ -276,9 +275,7 @@ def test_package_exports_the_runner_surface():
     assert api.sweep is repro_torch.sweep.sweep
     mods = lambda pkg: {m.name for m in pkgutil.iter_modules(  # noqa: E731
         pkg.__path__)}
-    left = {"hlo_analysis"}                       # queue 1 item 5 part 4
-    assert mods(launch) == (mods(jlaunch) - left - {"hlo_cost"}) | \
-        {"op_cost"}
+    assert mods(launch) == (mods(jlaunch) - {"hlo_cost"}) | {"op_cost"}
     import repro.launch.mesh as jmesh
     from repro_torch.launch import mesh
     assert all(hasattr(mesh, name) for name in dir(jmesh)
