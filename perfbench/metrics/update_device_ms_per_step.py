@@ -1,0 +1,15 @@
+"""Device time a traced step of the work launched inside the program's
+``step.update`` span: gossip's `GossipDP.update` (the clip, the noise and
+the mix, the dual step, the sparsity count) or AdamW's `optimizer.update`
+and `apply_updates`. Each device event is put down to the spans open at
+its launch (`perfbench.spans`); nothing to read where the trace holds no
+such span or no device event."""
+from perfbench.spans import device_s_in
+
+
+def read(trace, counts):
+    steps = counts.get("steps_traced")
+    secs = device_s_in(trace, "step.update")
+    if secs is None or not steps:
+        return None
+    return secs * 1e3 / steps

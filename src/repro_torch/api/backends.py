@@ -84,6 +84,7 @@ from repro_torch.api.runner import (BatchState, batch_init, chunk_loop,
                                     reference_round_program, seed_state,
                                     stack_states)
 from repro_torch.kernels.round_fused import MAX_FUSED_NODES
+from repro_torch.obs import span
 
 __all__ = ["BACKENDS", "ReferenceBackend", "CudaBackend"]
 
@@ -289,6 +290,10 @@ class CudaBackend:
             hist.transpose(0, 1), t, v)    # slot t % depth of every seed
 
         def round_fn(state, batch):
+            with span("round"):
+                return body(state, batch)
+
+        def body(state, batch):
             x, y = batch                   # (S, m, n), (S, m)
             theta, hist = state.theta, state.history
             if not sim:
@@ -296,48 +301,22 @@ class CudaBackend:
                 hist = None if hist is None else hist["w"]
             S = theta.shape[0]
             ctx = omd.step_context(state.t + 1)
-            coeff, loss, correct, wb_loss, sparsity = stats_and_coeff(
-                theta, x, y, ctx)
+            with span("round.stats"):
+                coeff, loss, correct, wb_loss, sparsity = stats_and_coeff(
+                    theta, x, y, ctx)
             live = (alive if schedule is None
                     else schedule.alive_f32(state.t, device)).expand(S, m)
 
             # each seed's noise draw from its own generator, outside the
             # kernels, in seed order
-            scale = mech.scale(ctx.alpha_t, n)
-            delta = _per_seed(lambda g: mech.sample(g, (m, n), scale),
-                              state.generators)
+            with span("round.noise"):
+                scale = mech.scale(ctx.alpha_t, n)
+                delta = _per_seed(lambda g: mech.sample(g, (m, n), scale),
+                                  state.generators)
 
-            if dense is not None:
-                if delay:
-                    tilde = theta + delta
-                    write_ring(hist, state.t, tilde)
-                    recv, use_recv = ring_read(hist.transpose(0, 1), state.t,
-                                               delay, tilde), 1
-                else:
-                    recv, use_recv = theta, 0
-                theta_next, _ = rf.round_update(
-                    A, theta, delta, x, recv.contiguous(), coeff, diag_v,
-                    live.contiguous(), ctx.alpha_t, use_recv,
-                    mech.noise_self, csr=csr)
-            else:
-                tilde = theta + delta
-                # the torch-op mix seed by seed
-                if delay:
-                    write_ring(hist, state.t, tilde)
-                    mixed = _stack_seeds([
-                        mixer.mix_history(theta[i], tilde[i], hist[i],
-                                          mech.noise_self, state.t)
-                        for i in range(S)])
-                else:
-                    mixed = _stack_seeds([
-                        mixer.mix(theta[i], tilde[i], mech.noise_self,
-                                  state.t) for i in range(S)])
-                # the dual step is row-wise: one launch over the S*m rows
-                theta_next = rf.dual_step(
-                    _seed_rows(mixed.contiguous()), _seed_rows(x),
-                    _seed_rows(theta), coeff.reshape(-1),
-                    live.reshape(-1), ctx.alpha_t).view(S, m, n)
-
+            with span("round.mix"):
+                theta_next = mix(state, theta, hist, delta, x, coeff, live,
+                                 ctx, S)
             out = RoundOutput(loss=loss, w_bar_loss=wb_loss,
                               sparsity=sparsity, correct=correct)
             if not sim:
@@ -346,6 +325,39 @@ class CudaBackend:
             return BatchState(theta=theta_next, t=state.t + 1,
                               generators=state.generators,
                               history=hist), out
+
+        def mix(state, theta, hist, delta, x, coeff, live, ctx, S):
+            """round_update, or the torch-op mix and one dual_step, with
+            the delay ring written on the way."""
+            if dense is not None:
+                if delay:
+                    tilde = theta + delta
+                    write_ring(hist, state.t, tilde)
+                    recv, use_recv = ring_read(hist.transpose(0, 1), state.t,
+                                               delay, tilde), 1
+                else:
+                    recv, use_recv = theta, 0
+                return rf.round_update(
+                    A, theta, delta, x, recv.contiguous(), coeff, diag_v,
+                    live.contiguous(), ctx.alpha_t, use_recv,
+                    mech.noise_self, csr=csr)[0]
+            tilde = theta + delta
+            # the torch-op mix seed by seed
+            if delay:
+                write_ring(hist, state.t, tilde)
+                mixed = _stack_seeds([
+                    mixer.mix_history(theta[i], tilde[i], hist[i],
+                                      mech.noise_self, state.t)
+                    for i in range(S)])
+            else:
+                mixed = _stack_seeds([
+                    mixer.mix(theta[i], tilde[i], mech.noise_self,
+                              state.t) for i in range(S)])
+            # the dual step is row-wise: one launch over the S*m rows
+            return rf.dual_step(
+                _seed_rows(mixed.contiguous()), _seed_rows(x),
+                _seed_rows(theta), coeff.reshape(-1),
+                live.reshape(-1), ctx.alpha_t).view(S, m, n)
 
         return round_fn
 

@@ -831,9 +831,15 @@ def run(spec: RunSpec | None, engine: str = "sim", *,
     interchange with any device count and with the unsharded path.
 
     ``exec.obs`` (default: the ambient `repro_torch.obs.active()`) is the
-    telemetry: when enabled, the run's warm-up, chunks, checkpoints and
-    regret are spans (``run.compile``, ``run.chunk``, ``run.checkpoint``,
-    ``run.regret``), ``run.rounds``, ``run.chunk_seconds``,
+    telemetry: when enabled (or while a ``torch.profiler`` session records,
+    `repro_torch.obs`), the run is spans: ``run`` (the whole call),
+    ``run.build`` (the chunk program, the initial state, a restore),
+    ``run.compile`` (the warm-up chunk), ``run.chunk`` (each chunk; with the
+    ambient telemetry or a profiler each round inside it is a ``round``
+    with ``round.stats``, ``round.noise`` and ``round.mix``, and each kernel
+    wrapper a ``kernel.<name>``), ``run.checkpoint``, ``run.result`` (the
+    trajectories copied to the host, the connectivity, the RunResult;
+    ``run.regret`` inside it); ``run.rounds``, ``run.chunk_seconds``,
     ``run.eps_total`` (and ``faults.mean_connectivity``) go into its
     metrics, ``run_start``/``chunk``/``checkpoint``/``run_end`` into its
     event stream, the chunk loop runs under its profiler, and
@@ -852,6 +858,16 @@ def run(spec: RunSpec | None, engine: str = "sim", *,
                            checkpoint_dir=cfg.checkpoint_dir)
     if spec is None:
         raise ValueError("run() needs a RunSpec (or step_fn= for custom mode)")
+    tel = cfg.obs if cfg.obs is not None else obslib.active()
+    with tel.span("run", engine=engine):
+        return _run(spec, engine, cfg, tel, horizon=horizon,
+                    on_chunk=on_chunk, device=device)
+
+
+def _run(spec: RunSpec, engine: str, cfg: ExecConfig, tel, *,
+         horizon: int | None, on_chunk: Callable | None,
+         device: str | torch.device) -> RunResult:
+    """`run` of a RunSpec, inside its ``run`` span."""
     dev = resolve_device(device)
     nmesh = None
     if cfg.node_devices is not None or cfg.node_mesh is not None:
@@ -870,15 +886,15 @@ def run(spec: RunSpec | None, engine: str = "sim", *,
     # so it agrees with the one the chunk program mixes with
     fault_mixer = spec.resolve_mixer() if spec.faults is not None else None
     fault_sched = getattr(fault_mixer, "schedule", None)
-    tel = cfg.obs if cfg.obs is not None else obslib.active()
     run_id = tel.new_run_id() if tel.enabled else None
 
-    if nmesh is None:
-        chunk_fn, init_fn = make_chunk_program(spec, engine, dev)
-    else:
-        from repro_torch.api.shard_node import make_node_chunk_fn
-        chunk_fn, init_fn = make_node_chunk_fn(spec, engine, nmesh)
-    state, start = _restore(cfg, init_fn(spec.seed))
+    with tel.span("run.build"):
+        if nmesh is None:
+            chunk_fn, init_fn = make_chunk_program(spec, engine, dev)
+        else:
+            from repro_torch.api.shard_node import make_node_chunk_fn
+            chunk_fn, init_fn = make_node_chunk_fn(spec, engine, nmesh)
+        state, start = _restore(cfg, init_fn(spec.seed))
     accountant.rounds = start
     if tel.enabled:
         tel.emit("run_start", run_id=run_id, kind="run", engine=engine,
@@ -889,22 +905,24 @@ def run(spec: RunSpec | None, engine: str = "sim", *,
         start, T, accountant, fault_sched, dev, tel=tel, run_id=run_id,
         kind="run", span_args={"engine": engine}, on_chunk=on_chunk)
 
-    traj = {f: _gather(outs, f) for f in _TRAJECTORIES}
-    regret = None
-    if cfg.compute_regret and start == 0 and xs_all:
-        from repro_torch.core.regret import cumulative_regret
-        xs_cat, ys_cat = torch.cat(xs_all), torch.cat(ys_all)
-        del xs_all, ys_all
-        with tel.span("run.regret", rounds=int(xs_cat.shape[0])):
-            regret = cumulative_regret(traj["w_bar_loss"], xs_cat, ys_cat,
-                                       spec.nodes)
+    with tel.span("run.result"):
+        traj = {f: _gather(outs, f) for f in _TRAJECTORIES}
+        regret = None
+        if cfg.compute_regret and start == 0 and xs_all:
+            from repro_torch.core.regret import cumulative_regret
+            xs_cat, ys_cat = torch.cat(xs_all), torch.cat(ys_all)
+            del xs_all, ys_all
+            with tel.span("run.regret", rounds=int(xs_cat.shape[0])):
+                regret = cumulative_regret(traj["w_bar_loss"], xs_cat,
+                                           ys_cat, spec.nodes)
 
-    done = T - start
-    result = _result(spec, engine, stream, state, traj, regret, T=T,
-                     start=start, wall=wall,
-                     rate=(done / wall) if wall > 0 else float("inf"),
-                     dev=dev, accountant=accountant, fault_sched=fault_sched,
-                     conn=_connectivity(fault_mixer, T, start, dev))
+        done = T - start
+        result = _result(spec, engine, stream, state, traj, regret, T=T,
+                         start=start, wall=wall,
+                         rate=(done / wall) if wall > 0 else float("inf"),
+                         dev=dev, accountant=accountant,
+                         fault_sched=fault_sched,
+                         conn=_connectivity(fault_mixer, T, start, dev))
     if tel.enabled:
         if "faults" in result.metrics:
             tel.metrics.gauge("faults.mean_connectivity").set(

@@ -40,6 +40,7 @@ from repro_torch.api.rules import LocalRule, OMDLassoRule, StepContext
 from repro_torch.core import prox, tree
 from repro_torch.core.omd import OMDConfig
 from repro_torch.device import MetaGenerator, shape_device
+from repro_torch.obs import span
 
 __all__ = ["GossipState", "GossipDP", "gossip_mix_tree", "per_node_clip"]
 
@@ -171,41 +172,48 @@ class GossipDP:
                grads: Any) -> tuple[GossipState, dict]:
         """Steps 10-11 for every node at once."""
         ctx = self._ctx(state.t + 1)
-        grads, gnorms = self.clipper.clip(grads)
+        with span("gossip.clip"):
+            grads, gnorms = self.clipper.clip(grads)
 
-        n = self.param_count_per_node(state.theta)
-        scale = self.mechanism.scale(ctx.alpha_t, n)
-
-        new_history = state.history
-        if self.delay:
-            mixed, new_history = gossip_mix_tree(
-                state.theta, state.generator, scale, self.mixer, t=state.t,
-                mechanism=self.mechanism, history=state.history)
-        else:
-            mixed = gossip_mix_tree(state.theta, state.generator, scale,
-                                    self.mixer, t=state.t,
-                                    mechanism=self.mechanism)
-        theta_next = tree.tree_map(
-            lambda th, g: self.local_rule.dual_step(th, g, ctx), mixed, grads)
-        del mixed, grads        # a full theta's worth of memory each
-        # crashed nodes (a fault schedule on the mixer) freeze every leaf of
-        # their local state until the crash window ends
-        fault_sched = getattr(self.mixer, "schedule", None)
-        if fault_sched is not None and fault_sched.has_crashes:
-            alive = fault_sched.alive_mask(
-                state.t, tree.leaves(theta_next)[0].device)
+        with span("gossip.mix"):
+            n = self.param_count_per_node(state.theta)
+            scale = self.mechanism.scale(ctx.alpha_t, n)
+            new_history = state.history
+            if self.delay:
+                mixed, new_history = gossip_mix_tree(
+                    state.theta, state.generator, scale, self.mixer,
+                    t=state.t, mechanism=self.mechanism,
+                    history=state.history)
+            else:
+                mixed = gossip_mix_tree(state.theta, state.generator, scale,
+                                        self.mixer, t=state.t,
+                                        mechanism=self.mechanism)
+        with span("gossip.dual_step"):
             theta_next = tree.tree_map(
-                lambda nxt, cur: torch.where(
-                    alive.reshape((-1,) + (1,) * (nxt.dim() - 1)), nxt, cur),
-                theta_next, state.theta)
+                lambda th, g: self.local_rule.dual_step(th, g, ctx), mixed,
+                grads)
+            del mixed, grads        # a full theta's worth of memory each
+            # crashed nodes (a fault schedule on the mixer) freeze every
+            # leaf of their local state until the crash window ends
+            fault_sched = getattr(self.mixer, "schedule", None)
+            if fault_sched is not None and fault_sched.has_crashes:
+                alive = fault_sched.alive_mask(
+                    state.t, tree.leaves(theta_next)[0].device)
+                theta_next = tree.tree_map(
+                    lambda nxt, cur: torch.where(
+                        alive.reshape((-1,) + (1,) * (nxt.dim() - 1)), nxt,
+                        cur),
+                    theta_next, state.theta)
         new_state = GossipState(theta=theta_next, t=state.t + 1,
                                 generator=state.generator,
                                 history=new_history)
+        with span("gossip.sparsity"):
+            sparsity = self._primal_sparsity(new_state)
         metrics = {
             "alpha_t": ctx.alpha_t,
             "noise_scale": scale,
             "grad_norm_mean": torch.mean(gnorms),
-            "theta_sparsity": self._primal_sparsity(new_state),
+            "theta_sparsity": sparsity,
         }
         return new_state, metrics
 

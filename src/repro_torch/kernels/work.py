@@ -6,13 +6,16 @@ uses. It is the one count of a kernel's work in the repository: the
 roofline bound of ``chip_smoke.py``'s kernels line and the kernel rows of
 `repro_torch.launch.op_cost` both read it.
 
-Each kernel wrapper runs its body inside `scope`. With no op count active
-on the calling thread (every run but a counting one) that is a shared null
-context. Under `repro_torch.launch.op_cost.count` the wrapper adds its
-kernel's `work` to the count as one row, and the count ignores the ops
-inside: the plain version's torch ops on the CPU, the output allocations
-beside the ``ctypes`` launch on the card (which the dispatcher never sees).
-So a round counts the same on either device.
+Each kernel wrapper runs its body inside `scope`, which is also its
+``kernel.<name>`` span (`repro_torch.obs.span`): the wrapper's host time,
+output allocations, ``stream_counter`` and the ``ctypes`` launch, while
+telemetry is on or a profiler records. With neither, and no op count active
+on the calling thread (every run but a traced or counting one), that is a
+shared null context. Under `repro_torch.launch.op_cost.count` the wrapper
+adds its kernel's `work` to the count as one row, and the count ignores
+the ops inside: the plain version's torch ops on the CPU, the output
+allocations beside the ``ctypes`` launch on the card (which the dispatcher
+never sees). So a round counts the same on either device.
 
 >>> work("round_stats", 64, 10_000)
 (5161024, 7680000)
@@ -23,6 +26,8 @@ from __future__ import annotations
 
 import contextlib
 import threading
+
+from repro_torch.obs import NULL_SPAN, span
 
 __all__ = ["work", "scope", "counting", "active"]
 
@@ -55,7 +60,7 @@ def work(name: str, m: int, n: int, nnz: int | None = None,
 
 
 _LOCAL = threading.local()
-_NULL = contextlib.nullcontext()
+_NULL = NULL_SPAN           # the shared null context: no count, no span
 
 
 def active():
@@ -88,11 +93,20 @@ def _report(counter, name: str, args: tuple, kw: dict):
         counter.mask -= 1
 
 
+@contextlib.contextmanager
+def _spanned(sp, report):
+    with sp, report:
+        yield
+
+
 def scope(name: str, *args, **kw):
-    """The context a kernel wrapper runs its body in: a null context, or
-    under an active op count the kernel's `work` (``work(name, *args,
-    **kw)``) reported as one row with the body's own ops masked."""
+    """The context a kernel wrapper runs its body in: its ``kernel.<name>``
+    span (the shared null span while no sink is live) and, under an active
+    op count, the kernel's `work` (``work(name, *args, **kw)``) reported as
+    one row with the body's own ops masked."""
+    sp = span("kernel." + name)
     counter = active()
     if counter is None:
-        return _NULL
-    return _report(counter, name, args, kw)
+        return sp
+    report = _report(counter, name, args, kw)
+    return report if sp is _NULL else _spanned(sp, report)

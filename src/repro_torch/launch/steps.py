@@ -48,6 +48,7 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.core import loops
 from repro_torch.models import attention, moe, transformer
 from repro_torch.models.config import ModelConfig, ShapeConfig
+from repro_torch.obs import span
 from repro_torch.optim import adamw, apply_updates, warmup_cosine
 from repro_torch.sharding import rules as shard_rules
 from repro_torch.sharding.rules import P, NamedSharding, check_axis
@@ -147,14 +148,16 @@ def _loss_and_grads(loss_fn, params, batch):
     a leaf the loss does not reach gets a zero gradient, as in JAX."""
     leaves, spec = tree.flatten(params)
     live = [leaf.detach().requires_grad_(True) for leaf in leaves]
-    loss, metrics = loss_fn(tree.unflatten(spec, live), batch)
-    grads = torch.autograd.grad(loss, live, allow_unused=True)
-    # materialize_grads=True's zeros, but for the parameters of layers a
-    # dry-run's representative layer stood for: what they stand in for
-    # was counted, so they are free stand-ins too
-    grads = [g if g is not None else
-             torch.empty_like(p) if loops.stands_in(p) else
-             torch.zeros_like(p) for g, p in zip(grads, live)]
+    with span("step.forward"):
+        loss, metrics = loss_fn(tree.unflatten(spec, live), batch)
+    with span("step.backward"):
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        # materialize_grads=True's zeros, but for the parameters of layers
+        # a dry-run's representative layer stood for: what they stand in
+        # for was counted, so they are free stand-ins too
+        grads = [g if g is not None else
+                 torch.empty_like(p) if loops.stands_in(p) else
+                 torch.zeros_like(p) for g, p in zip(grads, live)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             grads)
 
@@ -247,21 +250,25 @@ def make_gossip_train_step(model, gdp: GossipDP, microbatches: int = 1,
 
     def train_step(state: GossipTrainState, batch):
         check_axis(node_axis, "make_gossip_train_step(node_axis=)")
-        w = gdp.primal(state.gossip)  # node-stacked primal params (steps 6-7)
-        w_model = tree.tree_map(
-            lambda a: a.to(cfg.tdtype) if a.dtype == F32 else a, w)
-        del w
+        with span("step.primal"):
+            # node-stacked primal params (steps 6-7)
+            w = gdp.primal(state.gossip)
+            w_model = tree.tree_map(
+                lambda a: a.to(cfg.tdtype) if a.dtype == F32 else a, w)
+            del w
         spec = tree.flatten(w_model)[1]
         # the backward, and cfg.remat's recompute inside it, run under the
         # forward's attention contexts
         with attention.batch_parallel("model" if batchpar_attn else None), \
              attention.head_padding(head_pad, "model" if head_pad else None), \
-             attention.flash_vjp("flash" if flash else False):
+             attention.flash_vjp("flash" if flash else False), \
+             span("step.grad"):
             loss, metrics, out = node_grads(w_model, batch)
         del w_model
         grads = tree.unflatten(spec, out)
         del out
-        new_gossip, gossip_metrics = gdp.update(state.gossip, grads)
+        with span("step.update"):
+            new_gossip, gossip_metrics = gdp.update(state.gossip, grads)
         out = {
             "loss": torch.mean(loss),
             "ce": torch.mean(metrics["ce"]),
@@ -318,34 +325,40 @@ def make_allreduce_train_step(model, recipe: TrainRecipe,
 
     def train_step(state: AllreduceTrainState, batch):
         spec = tree.flatten(state.params)[1]
-        if M == 1:
-            loss, metrics, grads = _loss_and_grads(model.loss_fn,
-                                                   state.params, batch)
-        else:
-            mb_batch = tree.tree_map(
-                lambda leaf: leaf.reshape((M, leaf.shape[0] // M)
-                                          + tuple(leaf.shape[1:])), batch)
-            grads = [torch.zeros(p.shape, dtype=F32, device=p.device)
-                     for p in tree.leaves(state.params)]
-            losses, mets = [], []
-            chunks = loops.loop(M, grads[0], independent=True)
-            for j in chunks:
-                l_j, m_j, g_j = _loss_and_grads(
-                    model.loss_fn, state.params,
-                    tree.tree_map(lambda b: b[j], mb_batch))
-                for acc, g in zip(grads, g_j):
-                    acc += g.to(F32)
-                losses.append(l_j)
-                mets.append(m_j)
-            losses, mets = chunks.full(losses), chunks.full(mets)
-            grads = [g / M for g in grads]
-            loss = torch.mean(torch.stack(losses))
-            metrics = {k: torch.mean(torch.stack([m[k] for m in mets]))
-                       for k in mets[0]}
-        updates, opt = optimizer.update(tree.unflatten(spec, grads),
-                                        state.opt, state.params)
-        params = apply_updates(state.params, updates)
+        with span("step.grad"):
+            loss, metrics, grads = replica_grads(state.params, batch)
+        with span("step.update"):
+            updates, opt = optimizer.update(tree.unflatten(spec, grads),
+                                            state.opt, state.params)
+            params = apply_updates(state.params, updates)
         return AllreduceTrainState(params, opt), {"loss": loss, **metrics}
+
+    def replica_grads(params, batch):
+        """(loss, metrics, gradients in leaf order) of the replica's batch,
+        accumulated over M microbatches."""
+        if M == 1:
+            return _loss_and_grads(model.loss_fn, params, batch)
+        mb_batch = tree.tree_map(
+            lambda leaf: leaf.reshape((M, leaf.shape[0] // M)
+                                      + tuple(leaf.shape[1:])), batch)
+        grads = [torch.zeros(p.shape, dtype=F32, device=p.device)
+                 for p in tree.leaves(params)]
+        losses, mets = [], []
+        chunks = loops.loop(M, grads[0], independent=True)
+        for j in chunks:
+            l_j, m_j, g_j = _loss_and_grads(
+                model.loss_fn, params,
+                tree.tree_map(lambda b: b[j], mb_batch))
+            for acc, g in zip(grads, g_j):
+                acc += g.to(F32)
+            losses.append(l_j)
+            mets.append(m_j)
+        losses, mets = chunks.full(losses), chunks.full(mets)
+        grads = [g / M for g in grads]
+        loss = torch.mean(torch.stack(losses))
+        metrics = {k: torch.mean(torch.stack([m[k] for m in mets]))
+                   for k in mets[0]}
+        return loss, metrics, grads
 
     def init(seed: int = 0) -> AllreduceTrainState:
         params = model.init(seed)

@@ -3,8 +3,9 @@
 Counterpart of `repro.obs`. One :class:`Telemetry` object bundles what the
 port publishes into:
 
-  * a span :class:`~repro_torch.obs.trace.Tracer` (chunk, checkpoint,
-    publish phases; Chrome ``trace.json`` export);
+  * a span :class:`~repro_torch.obs.trace.Tracer` (run, chunk, round,
+    kernel-wrapper, LM-step, checkpoint and publish phases; Chrome
+    ``trace.json`` export);
   * a thread-safe :class:`~repro_torch.obs.metrics.MetricsRegistry` (eps
     burn, rounds/sec, serve counters, fault connectivity);
   * an optional JSONL :class:`~repro_torch.obs.events.EventLog` run-event
@@ -25,6 +26,20 @@ nothing unless a caller installed an enabled instance with :func:`enable`
 (or passed ``ExecConfig(obs=...)``). It never touches device math — a run
 with it on is bit-identical to one with it off.
 
+Spans have two sinks (`repro_torch.obs.trace`). :func:`span` is the hot
+path's entry, used inside the round, the kernel wrappers and the LM step:
+a span is live when the ambient telemetry is enabled, when a
+``torch.profiler`` session is recording, or both. Enabled telemetry keeps
+it in its tracer; a recording profiler gets it as a host range named
+``"repro_torch:" + name`` (`trace.PREFIX`) on the profiler's clock, which
+the device events launched inside it link to through their launches; with
+the profiler alone nothing is kept in memory. Otherwise :func:`span` returns
+the shared `NULL_SPAN` after reading two module globals. The tracer's
+Chrome export writes epoch microseconds, the profiler's clock, so both
+traces of one run open together in Perfetto. :meth:`Telemetry.span` (the
+runner's ``run.*`` spans, into the telemetry it was given) reaches the
+profiler the same way.
+
 >>> import repro_torch.obs as obs
 >>> obs.active().enabled                   # ambient default: off
 False
@@ -41,6 +56,8 @@ True
 >>> obs.disable()                          # ...and restore the default
 >>> obs.active().enabled
 False
+>>> obs.span("round") is obs.NULL_SPAN     # off, and no profiler recording
+True
 """
 from __future__ import annotations
 
@@ -54,7 +71,9 @@ from repro_torch.obs.events import (DEFAULT_EVENTS_PATH, EventLog,
                                     group_runs, read_events)
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram,
                                      MetricsRegistry)
-from repro_torch.obs.trace import Span, Tracer
+from repro_torch.obs.trace import NULL_SPAN, PREFIX, Span, Tracer  # noqa: F401
+
+import torch.autograd.profiler as _profiler  # noqa: E402
 
 __all__ = [
     "Telemetry", "enable", "disable", "active",
@@ -151,6 +170,14 @@ class Telemetry:
 
 _DISABLED = Telemetry(enabled=False)
 _active: Telemetry = _DISABLED
+
+
+def span(name: str, **args):
+    """A span of the ambient telemetry (see the module docstring): the
+    shared `NULL_SPAN` while telemetry is off and no profiler records."""
+    if _active is _DISABLED and not _profiler._is_profiler_enabled:
+        return NULL_SPAN
+    return _active.tracer.span(name, **args)
 
 
 def active() -> Telemetry:
