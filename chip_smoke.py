@@ -53,9 +53,14 @@ Phases (any failure raises, and the script exits non-zero):
 4. main path — ``repro_torch.run`` at the paper's scale (m=64, n=10,000,
                T=1,562 rounds = 100,000 samples, social_sparse, ring,
                Laplace eps=1 coordinate, L2 clip 1, alpha0=1, lam=1e-3),
-               fused ``backend="cuda"``, with regret; the fused kernels must
-               have launched once per round. Then the device idle share of
-               64 rounds (profiler busy time over the round loop's time).
+               fused ``backend="cuda"``, with regret; every round must have
+               replayed from the CUDA graph (``round.graph_rounds``) and the
+               fused kernels' counts must read one launch per round. Then
+               the device idle share of 64 rounds (profiler busy time over
+               the round loop's time), whose trace must hold one
+               ``stats_kernel`` and one ``update_sparse_kernel`` a round,
+               and one more of each for the eager round the capture runs
+               first.
 5. agreement — the first 64 rounds on ``backend="reference"`` (torch ops)
                against the fused backend, same seed and generator; then
                the whole horizon (1,562 rounds) at seeds 0, 1 and 2.
@@ -275,6 +280,7 @@ import functools
 import itertools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -1155,20 +1161,29 @@ def main_path(card: str):
     import numpy as np
     from repro_torch import ExecConfig, run
     from repro_torch.kernels import round_fused as rf
+    from repro_torch.obs import Telemetry
 
     spec = paper_spec()
     T = spec.horizon
     # warmup=False: the kernels were built and loaded in phase 2, and a
-    # warm-up round would add one launch to each count
-    cfg = ExecConfig(chunk_rounds=256, compute_regret=True, warmup=False)
+    # warm-up chunk would add its rounds to each count; the run's own
+    # telemetry (not the ambient one: the round's spans stay off) counts
+    # the rounds replayed from the graph
+    tel = Telemetry()
+    cfg = ExecConfig(chunk_rounds=256, compute_regret=True, warmup=False,
+                     obs=tel)
     rf.reset_launches()
     t0 = time.perf_counter()
     res = run(spec, exec=cfg, device=DEVICE)
     wall = time.perf_counter() - t0
     launches = _launches()
+    snap = tel.metrics.snapshot()
+    rounds = (snap.get("round.graph_rounds"), snap.get("round.eager_rounds"))
     log(f"main path: {T} rounds, run() {wall:.2f} s with regret; round "
         f"loop {res.wall_clock:.3f} s = {res.rounds_per_sec:.1f} rounds/s; "
-        f"launches {launches} | {card}")
+        f"launches {launches}; graphed/eager rounds {rounds} | {card}")
+    require(rounds == (T, 0), f"main path: graphed/eager rounds {rounds}, "
+            f"expected ({T}, 0)")
     _require_path(launches, "sparse", T, "main path")
     for f in ("final_w", "loss", "w_bar_loss", "sparsity", "regret"):
         v = np.asarray(getattr(res, f))
@@ -1185,22 +1200,41 @@ def main_path(card: str):
     return res, launches
 
 
+def _kernel_events(events: list) -> dict:
+    """How many of ``events`` each hand-written round kernel is, by the
+    kernel's name in the trace."""
+    return {k: sum(1 for e in events if re.search(rf"\b{k}\b", e.name))
+            for k in ("stats_kernel", "update_sparse_kernel",
+                      "update_dense_kernel", "dual_kernel")}
+
+
 def idle_share(card: str) -> None:
     """Device idle share of 64 fused rounds: the profiler's device busy
     time over the round loop's time in an unprofiled run of the same
-    rounds (stream generation included in both)."""
+    rounds (stream generation included in both). The traced run's round
+    kernels are counted on the card: one ``stats_kernel`` and one
+    ``update_sparse_kernel`` a replayed round, and one of each for the
+    eager round the capture runs before it captures."""
     from repro_torch import ExecConfig, run
     spec = paper_spec(horizon=AGREE_ROUNDS)
     cfg = ExecConfig(chunk_rounds=AGREE_ROUNDS, compute_regret=False,
                      warmup=False)
     run(spec, exec=cfg, device=DEVICE)      # allocator and caches warm
     loop_us = run(spec, exec=cfg, device=DEVICE).wall_clock * 1e6
-    busy_us = sum(e.time_range.elapsed_us() for e in _profiled(
-        lambda: run(spec, exec=cfg, device=DEVICE), reps=1))
+    events = _profiled(lambda: run(spec, exec=cfg, device=DEVICE), reps=1)
+    busy_us = sum(e.time_range.elapsed_us() for e in events)
     if busy_us <= 0:
         log("device idle share: not measured (the profiler saw no device "
             "time)")
         return
+    kernels = _kernel_events(events)
+    want = {"stats_kernel": AGREE_ROUNDS + 1,
+            "update_sparse_kernel": AGREE_ROUNDS + 1,
+            "update_dense_kernel": 0, "dual_kernel": 0}
+    log(f"traced run of {AGREE_ROUNDS} rounds: round kernels on the card "
+        f"{kernels}")
+    require(kernels == want, f"traced run: round kernels {kernels} on the "
+            f"card, expected {want}")
     log(f"device busy {busy_us / 1e3:.3f} ms of a {loop_us / 1e3:.3f} ms "
         f"round loop over {AGREE_ROUNDS} fused rounds: idle share "
         f"{max(0.0, 1 - busy_us / loop_us):.3f} | {card}")
@@ -1537,6 +1571,8 @@ def _per_round_profile(spec, rounds: int) -> tuple[float, float, float]:
     from repro_torch.device import resolve_device, synchronize
     dev = resolve_device(DEVICE)
     chunk_fn, init_fn = make_chunk_program(spec, "sim", dev)
+    for graph in chunk_fn.graphs:       # replayed, as run() would
+        graph.plan(0, rounds, rounds)
     xs, ys = (torch.as_tensor(a, dtype=torch.float32).to(dev) for a in
               spec.resolve_stream(device=dev).chunk(0, rounds))
 

@@ -43,6 +43,13 @@ Modes of "cuda" (``backend_options={"mode": ...}``):
            neither has a faulty one (`repro_torch.faults`: its weights
            change every round), so a fault scenario always runs hybrid.
 
+Where the round has the same shape every round — the fused form at delay
+0 with no fault schedule and the port's own mechanism, on the card — the
+chunk programs replay it from a CUDA graph captured once a run
+(`round_graph.RoundGraph`, built by `CudaBackend._round_program`): one
+launch a round, bit for bit the eager loop. Every other path keeps the
+eager loop.
+
 Under a fault scenario with crash windows, the crash freeze runs in the
 kernel (``dual_step``; ``round_update`` has the same epilogue) with the
 round's liveness row from the schedule's device table — no host copy per
@@ -198,23 +205,26 @@ class CudaBackend:
                              "'auto', 'fused' or 'hybrid'")
 
     def make_chunk_program(self, spec, engine: str, device: torch.device):
-        """One run: the batched round on a batch of that one seed (views
-        of its state: nothing is copied)."""
-        round_fn = self._make_round_fn(spec, engine, device)
+        """One run: the batch chunk program on a batch of that one seed
+        (views of its state: nothing is copied)."""
         init_fn = reference_round_program(spec, engine, device)[1]
+        batch_fn = chunk_loop(*self._round_program(spec, engine, device))
 
-        def one_seed(state, batch):
-            x, y = batch
-            bstate, out = round_fn(stack_states([state]), (x[None], y[None]))
+        def chunk_fn(state, xs, ys):
+            bstate, out = batch_fn(stack_states([state]), xs[:, None],
+                                   ys[:, None])
             return seed_state(engine, bstate, 0), type(out)(
-                *(f[0] for f in out))
+                *(f[:, 0] for f in out))
 
-        return chunk_loop(one_seed), init_fn
+        chunk_fn.graphs = batch_fn.graphs
+        return chunk_fn, init_fn
 
     def make_batch_chunk_program(self, spec, engine: str,
                                  device: torch.device):
+        """A seed batch: the round of `_make_round_fn`, replayed from a
+        CUDA graph where `_round_program` builds one (``chunk_fn.graphs``)."""
         init_fn = reference_round_program(spec, engine, device)[1]
-        return (chunk_loop(self._make_round_fn(spec, engine, device)),
+        return (chunk_loop(*self._round_program(spec, engine, device)),
                 batch_init(init_fn))
 
     def _make_round_fn(self, spec, engine: str,
@@ -223,6 +233,16 @@ class CudaBackend:
         one ``round_stats`` and one ``round_update`` (or ``dual_step``)
         launch for all seeds, the per-node algebra on (S, m) tensors, and
         each seed's noise from its own generator, in seed order."""
+        return self._round_program(spec, engine, device)[0]
+
+    def _round_program(self, spec, engine: str, device: torch.device):
+        """(round_fn, `round_graph.RoundGraph` or None): the eager round of
+        `_make_round_fn`, and the same round body to capture where the
+        round has one shape every round — the fused form (a fixed
+        topology, a CSR or dense A), delay 0, no fault schedule and the
+        port's own noise mechanism — on the card. The node-sharded round
+        (`make_local_round_fn`) and every other path run eagerly."""
+        from repro_torch.api import round_graph
         from repro_torch.api.clippers import (PerNodeL2Clipper, clip_factor,
                                               per_node_norms)
         from repro_torch.core.algorithm1 import RoundOutput
@@ -262,9 +282,9 @@ class CudaBackend:
             schedule = None
         alive = torch.ones(m, dtype=torch.float32, device=device)
 
-        def stats_and_coeff(theta, x, y, ctx):
+        def stats_and_coeff(theta, x, y, lam_t, counter):
             dot, _, nnz, wbdot, _ = rf.round_stats(
-                theta, x, ctx.lam_t, m, prox_l1=prox_l1)
+                theta, x, lam_t, m, prox_l1=prox_l1, counter=counter)
             margin = y * dot
             loss = torch.clamp_min(1.0 - margin, 0.0)
             correct = (torch.sign(dot) == y).to(torch.float32)
@@ -293,32 +313,42 @@ class CudaBackend:
             with span("round"):
                 return body(state, batch)
 
+        def core(theta, hist, t, x, y, lam_t, alpha_t, noise,
+                 counter=None):
+            """Round t of S seeds: (theta_next, RoundOutput). lam_t and
+            alpha_t are numbers, or device scalars in a captured round;
+            ``noise()`` is the round's (S, m, n) noise."""
+            S = theta.shape[0]
+            with span("round.stats"):
+                coeff, loss, correct, wb_loss, sparsity = stats_and_coeff(
+                    theta, x, y, lam_t, counter)
+            live = (alive if schedule is None
+                    else schedule.alive_f32(t, device)).expand(S, m)
+            with span("round.noise"):
+                delta = noise()
+            with span("round.mix"):
+                theta_next = mix(t, theta, hist, delta, x, coeff, live,
+                                 alpha_t, S)
+            return theta_next, RoundOutput(loss=loss, w_bar_loss=wb_loss,
+                                           sparsity=sparsity, correct=correct)
+
         def body(state, batch):
             x, y = batch                   # (S, m, n), (S, m)
             theta, hist = state.theta, state.history
             if not sim:
                 theta = theta["w"]
                 hist = None if hist is None else hist["w"]
-            S = theta.shape[0]
             ctx = omd.step_context(state.t + 1)
-            with span("round.stats"):
-                coeff, loss, correct, wb_loss, sparsity = stats_and_coeff(
-                    theta, x, y, ctx)
-            live = (alive if schedule is None
-                    else schedule.alive_f32(state.t, device)).expand(S, m)
 
-            # each seed's noise draw from its own generator, outside the
-            # kernels, in seed order
-            with span("round.noise"):
+            def noise():
+                # each seed's noise draw from its own generator, outside
+                # the kernels, in seed order
                 scale = mech.scale(ctx.alpha_t, n)
-                delta = _per_seed(lambda g: mech.sample(g, (m, n), scale),
-                                  state.generators)
+                return _per_seed(lambda g: mech.sample(g, (m, n), scale),
+                                 state.generators)
 
-            with span("round.mix"):
-                theta_next = mix(state, theta, hist, delta, x, coeff, live,
-                                 ctx, S)
-            out = RoundOutput(loss=loss, w_bar_loss=wb_loss,
-                              sparsity=sparsity, correct=correct)
+            theta_next, out = core(theta, hist, state.t, x, y, ctx.lam_t,
+                                   ctx.alpha_t, noise)
             if not sim:
                 theta_next = {"w": theta_next}
                 hist = None if hist is None else {"w": hist}
@@ -326,40 +356,50 @@ class CudaBackend:
                               generators=state.generators,
                               history=hist), out
 
-        def mix(state, theta, hist, delta, x, coeff, live, ctx, S):
+        def mix(t, theta, hist, delta, x, coeff, live, alpha_t, S):
             """round_update, or the torch-op mix and one dual_step, with
             the delay ring written on the way."""
             if dense is not None:
                 if delay:
                     tilde = theta + delta
-                    write_ring(hist, state.t, tilde)
-                    recv, use_recv = ring_read(hist.transpose(0, 1), state.t,
+                    write_ring(hist, t, tilde)
+                    recv, use_recv = ring_read(hist.transpose(0, 1), t,
                                                delay, tilde), 1
                 else:
                     recv, use_recv = theta, 0
                 return rf.round_update(
                     A, theta, delta, x, recv.contiguous(), coeff, diag_v,
-                    live.contiguous(), ctx.alpha_t, use_recv,
+                    live.contiguous(), alpha_t, use_recv,
                     mech.noise_self, csr=csr)[0]
             tilde = theta + delta
             # the torch-op mix seed by seed
             if delay:
-                write_ring(hist, state.t, tilde)
+                write_ring(hist, t, tilde)
                 mixed = _stack_seeds([
                     mixer.mix_history(theta[i], tilde[i], hist[i],
-                                      mech.noise_self, state.t)
+                                      mech.noise_self, t)
                     for i in range(S)])
             else:
                 mixed = _stack_seeds([
-                    mixer.mix(theta[i], tilde[i], mech.noise_self,
-                              state.t) for i in range(S)])
+                    mixer.mix(theta[i], tilde[i], mech.noise_self, t)
+                    for i in range(S)])
             # the dual step is row-wise: one launch over the S*m rows
             return rf.dual_step(
                 _seed_rows(mixed.contiguous()), _seed_rows(x),
                 _seed_rows(theta), coeff.reshape(-1),
-                live.reshape(-1), ctx.alpha_t).view(S, m, n)
+                live.reshape(-1), alpha_t).view(S, m, n)
 
-        return round_fn
+        graph = None
+        if (dense is not None and delay == 0 and schedule is None
+                and round_graph.graphable_mechanism(mech)
+                and round_graph._card(device)):
+            graph = round_graph.RoundGraph(
+                lambda theta, x, y, lam_t, alpha_t, noise, counter: core(
+                    theta, None, 0, x, y, lam_t, alpha_t, noise, counter),
+                lambda gens, scale: _per_seed(
+                    lambda g: scale * mech.unit(g, (m, n)), gens),
+                engine=engine, omd=omd, mech=mech, m=m, n=n, device=device)
+        return round_fn, graph
 
     # -- node-sharded round (hybrid: the halo exchange stays in torch ops) --
 

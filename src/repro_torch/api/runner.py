@@ -275,18 +275,27 @@ def make_batch_chunk_program(spec: RunSpec, engine: str = "sim",
         spec, engine, resolve_device(device))
 
 
-def chunk_loop(round_fn: Callable) -> Callable:
+def chunk_loop(round_fn: Callable, graph=None) -> Callable:
     """chunk_fn(state, xs, ys) -> (state, stacked RoundOutput): the Python
-    loop over rounds that takes the place of the reference's lax.scan."""
+    loop over rounds that takes the place of the reference's lax.scan.
+
+    With ``graph`` (a `round_graph.RoundGraph` of the same round), a chunk
+    the graph takes (`RoundGraph.takes`) replays the captured round, one
+    graph launch a round, with the same outputs bit for bit. The chunk
+    program's graphs are ``chunk_fn.graphs``: `_drive` plans them for the
+    run's rounds and counts the rounds they replay."""
     from repro_torch.core.algorithm1 import RoundOutput
 
     def chunk_fn(state, xs, ys):
+        if graph is not None and graph.takes(state, xs):
+            return graph(state, xs, ys)
         outs = []
         for k in range(xs.shape[0]):
             state, out = round_fn(state, (xs[k], ys[k]))
             outs.append(out)
         return state, RoundOutput(*(torch.stack(f) for f in zip(*outs)))
 
+    chunk_fn.graphs = () if graph is None else (graph,)
     return chunk_fn
 
 
@@ -477,6 +486,8 @@ def seed_rows_program(programs: list, devices: list,
             torch.cat([f.to(device) for f in fs], dim=1)[:, :S]
             for fs in zip(*outs)))
 
+    chunk_fn.graphs = tuple(g for p in programs
+                            for g in getattr(p, "graphs", ()))
     return chunk_fn
 
 
@@ -620,8 +631,19 @@ def _drive(cfg: ExecConfig, chunk_fn: Callable, chunk: Callable, state,
     (`obs.analyze_chunk`) on a copy of the state and its generators before
     the timed loop, scaled by the first chunk's rounds, and every chunk's
     measured time is recorded beside the prediction, in the ``ChunkCost``
-    returned last (None with the cost loop off)."""
+    returned last (None with the cost loop off).
+
+    The chunk program's CUDA graphs (``chunk_fn.graphs``, `chunk_loop`) are
+    planned for rounds [start, T) before the warm-up, which then captures
+    the round; an enabled ``tel`` counts the loop's rounds replayed from a
+    graph (``round.graph_rounds``) and run eagerly (``round.eager_rounds``).
+    """
     bounds = _boundaries(start, T, cfg.chunk_rounds, cfg.checkpoint_every)
+    graphs = getattr(chunk_fn, "graphs", ())
+    if len(bounds) > 1:
+        for graph in graphs:
+            graph.plan(start, T, max(b - a for a, b in zip(bounds[:-1],
+                                                           bounds[1:])))
     cost_on = tel.cost_enabled and len(bounds) > 1
     first_chunk = None
     if (cfg.warmup or cost_on) and len(bounds) > 1:
@@ -653,6 +675,7 @@ def _drive(cfg: ExecConfig, chunk_fn: Callable, chunk: Callable, state,
                 xs, ys = first_chunk   # don't regenerate the warmup chunk
             else:
                 xs, ys = chunk(a, b)
+            replayed = [graph.replayed for graph in graphs]
             with tel.span(f"{kind}.chunk", round_start=a, round_end=b,
                           **chunk_args) as sp:
                 state, out = chunk_fn(state, xs, ys)
@@ -669,6 +692,10 @@ def _drive(cfg: ExecConfig, chunk_fn: Callable, chunk: Callable, state,
                 secs = sp.duration_s
                 eps_now = accountant.guarantee_at(b)
                 tel.metrics.counter(f"{kind}.rounds").inc(b - a)
+                graphed = max((graph.replayed - r for graph, r in
+                               zip(graphs, replayed)), default=0)
+                tel.metrics.counter("round.graph_rounds").inc(graphed)
+                tel.metrics.counter("round.eager_rounds").inc(b - a - graphed)
                 tel.metrics.histogram(f"{kind}.chunk_seconds").observe(secs)
                 tel.metrics.gauge(f"{kind}.eps_total").set(eps_now)
                 if chunk_cost is not None:
@@ -837,10 +864,13 @@ def run(spec: RunSpec | None, engine: str = "sim", *,
     ``run.compile`` (the warm-up chunk), ``run.chunk`` (each chunk; with the
     ambient telemetry or a profiler each round inside it is a ``round``
     with ``round.stats``, ``round.noise`` and ``round.mix``, and each kernel
-    wrapper a ``kernel.<name>``), ``run.checkpoint``, ``run.result`` (the
+    wrapper a ``kernel.<name>``; a round replayed from a CUDA graph is a
+    ``round.replay``, and the round body's spans fire inside the one
+    ``round.capture``), ``run.checkpoint``, ``run.result`` (the
     trajectories copied to the host, the connectivity, the RunResult;
     ``run.regret`` inside it); ``run.rounds``, ``run.chunk_seconds``,
-    ``run.eps_total`` (and ``faults.mean_connectivity``) go into its
+    ``run.eps_total``, ``round.graph_rounds`` and ``round.eager_rounds``
+    (and ``faults.mean_connectivity``) go into its
     metrics, ``run_start``/``chunk``/``checkpoint``/``run_end`` into its
     event stream, the chunk loop runs under its profiler, and
     ``metrics["obs"]`` holds the run id. With ``Telemetry(cost=True)`` one

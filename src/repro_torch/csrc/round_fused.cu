@@ -25,6 +25,12 @@
 // offsets cost an S = 1 launch 1-4 % on the card (more registers in the
 // dense round_update, tools/round_ab.py in turns against the kernels
 // without a seed axis); guarded, 1 %.
+// The schedule scalars lam_t (round_stats) and alpha (round_update) come by
+// value, or, when the caller passes a non-null pointer beside the value,
+// from one float in device memory: a round captured in a CUDA graph reads
+// them from its row of the run's constants table
+// (src/repro_torch/api/round_graph.py), so one capture serves every round.
+// The arithmetic is the same f32 either way.
 // `vec` = 4 when n % 4 == 0 and every (m, n) pointer is 16-byte aligned (the
 // wrapper decides): rows are then read and written as float4; else 1.
 //
@@ -64,7 +70,8 @@
 //   partials, so a seed's last block finalizes that seed alone. The
 //   counters are an (S_max,) int32 array the wrapper allocates once per
 //   (device, stream), zeroed, and grows (zeroed) when S grows, so calls on
-//   two streams never share one and calls on one stream run in order.
+//   two streams never share one and calls on one stream run in order; a
+//   captured round passes its own, so two graphs never share one.
 //   What still bounds it: the finalize. The fence and ticket cost about a
 //   microsecond, and the last block then reads blocks x m x 16 B of partials
 //   (89 KB at m=64) through one SM after the whole grid has finished. Below
@@ -221,6 +228,14 @@ __device__ __forceinline__ void load_slab(const float* __restrict__ src,
   }
 }
 
+// a round's schedule scalar (lam_t, alpha_t): read from device memory when
+// the caller passes a pointer (a captured round reads its row of the run's
+// constants table), else the value passed; the same f32 either way
+__device__ __forceinline__ float scalar(const float* __restrict__ p,
+                                        float v) {
+  return p ? __ldg(p) : v;
+}
+
 // sign(t) * max(|t| - lam, 0), exactly as the reference writes it
 __device__ __forceinline__ float soft_threshold(float t, float lam) {
   float a = fabsf(t) - lam;
@@ -290,7 +305,8 @@ __device__ __forceinline__ float4 shfl_xor4(const float4& a, int off) {
 template <int V>
 __global__ void __launch_bounds__(kSlabThreads)
 stats_kernel(const float* __restrict__ theta, const float* __restrict__ x,
-             float lam_t, float m_real, int prox_l1, int m, int n, int units,
+             const float* __restrict__ lam_p, float lam_v, float m_real,
+             int prox_l1, int m, int n, int units,
              int W, int RC, float4* __restrict__ partial,
              unsigned* __restrict__ counter, float* __restrict__ dot,
              float* __restrict__ xsq, int* __restrict__ nnz,
@@ -318,6 +334,7 @@ stats_kernel(const float* __restrict__ theta, const float* __restrict__ x,
   float* T = stage;
   float* X = stage + (size_t)RC * cols;
   const bool single = RC >= m;
+  const float lam_t = scalar(lam_p, lam_v);
   auto prox = [&](float t) { return prox_l1 ? soft_threshold(t, lam_t) : t; };
 
   // pass 1: column sums of w, in a fixed order (S row segments per column
@@ -488,7 +505,8 @@ update_sparse_kernel(const int* __restrict__ indptr,
                      const float* __restrict__ recv,
                      const float* __restrict__ coeff,
                      const float* __restrict__ diag,
-                     const float* __restrict__ alive, float alpha,
+                     const float* __restrict__ alive,
+                     const float* __restrict__ alpha_p, float alpha_v,
                      int use_recv, int noise_self, int m, int n, int units,
                      int W, float* __restrict__ out,
                      float* __restrict__ tilde_out) {
@@ -500,6 +518,7 @@ update_sparse_kernel(const int* __restrict__ indptr,
   __shared__ float s_w[kCsrNnz];
   float* R = reinterpret_cast<float*>(rbuf);
   const int tid = threadIdx.x, u0 = blockIdx.x * W, slab = m * W;
+  const float alpha = scalar(alpha_p, alpha_v);
   if (blockIdx.y) {  // seed > 0: its rows and per-node vectors
     const size_t seed = blockIdx.y, rows = seed * m * n;
     theta += rows;
@@ -584,7 +603,8 @@ update_dense_kernel(const float* __restrict__ A,
                     const float* __restrict__ recv,
                     const float* __restrict__ coeff,
                     const float* __restrict__ diag,
-                    const float* __restrict__ alive, float alpha,
+                    const float* __restrict__ alive,
+                    const float* __restrict__ alpha_p, float alpha_v,
                     int use_recv, int noise_self, int m, int n,
                     float* __restrict__ out, float* __restrict__ tilde_out) {
   // two stages of: A^T of the tile (As[k][row], rows padded so float4 reads
@@ -593,6 +613,7 @@ update_dense_kernel(const float* __restrict__ A,
   __shared__ __align__(16) float Ps[2][kDK][kDN];
   __shared__ __align__(16) float Qs[2][kDK][kDN];
   const int tid = threadIdx.x;
+  const float alpha = scalar(alpha_p, alpha_v);
   const int tx = tid & 7, ty = tid >> 3;                 // 8 x 16
   const int row0 = blockIdx.y * kDM, col0 = blockIdx.x * kDN;
   if (blockIdx.z) {  // seed > 0: its rows and per-node vectors
@@ -727,8 +748,8 @@ inline StatsSlab stats_slab(int m, int n, int vec) {
 }
 
 template <int V>
-int launch_stats(const float* theta, const float* x, float lam_t,
-                 float m_real, int prox_l1, int seeds, int m, int n,
+int launch_stats(const float* theta, const float* x, const float* lam_p,
+                 float lam_t, float m_real, int prox_l1, int seeds, int m, int n,
                  void* scratch, unsigned* counter, float* dot, float* xsq,
                  int* nnz, float* wbdot, float* wsum, cudaStream_t s) {
   const cudaError_t attr = cudaFuncSetAttribute(
@@ -738,7 +759,7 @@ int launch_stats(const float* theta, const float* x, float lam_t,
   const StatsSlab sl = stats_slab(m, n, V);
   const dim3 grid((unsigned)sl.blocks, (unsigned)seeds);
   stats_kernel<V><<<grid, kSlabThreads, sl.smem, s>>>(
-      theta, x, lam_t, m_real, prox_l1, m, n, sl.units, sl.W, sl.RC,
+      theta, x, lam_p, lam_t, m_real, prox_l1, m, n, sl.units, sl.W, sl.RC,
       static_cast<float4*>(scratch), counter, dot, xsq, nnz, wbdot, wsum);
   return (int)cudaGetLastError();
 }
@@ -753,26 +774,28 @@ int64_t rf_stats_scratch_float4s(int m, int n, int vec) {
 }
 
 // `seeds` runs stacked (see the header), one (S_max,) counter per seed
-int rf_round_stats(const float* theta, const float* x, float lam_t,
-                   float m_real, int prox_l1, int seeds, int m, int n,
+int rf_round_stats(const float* theta, const float* x, const float* lam_p,
+                   float lam_t, float m_real, int prox_l1, int seeds, int m, int n,
                    int vec, void* scratch, unsigned* counter, float* dot,
                    float* xsq, int* nnz, float* wbdot, float* wsum,
                    void* stream) {
   if (seeds < 1 || seeds > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return vec == 4
-             ? launch_stats<4>(theta, x, lam_t, m_real, prox_l1, seeds, m, n,
-                               scratch, counter, dot, xsq, nnz, wbdot, wsum, s)
-             : launch_stats<1>(theta, x, lam_t, m_real, prox_l1, seeds, m, n,
-                               scratch, counter, dot, xsq, nnz, wbdot, wsum,
-                               s);
+             ? launch_stats<4>(theta, x, lam_p, lam_t, m_real, prox_l1, seeds,
+                               m, n, scratch, counter, dot, xsq, nnz, wbdot,
+                               wsum, s)
+             : launch_stats<1>(theta, x, lam_p, lam_t, m_real, prox_l1, seeds,
+                               m, n, scratch, counter, dot, xsq, nnz, wbdot,
+                               wsum, s);
 }
 
 int rf_round_update_sparse(const int* indptr, const int* indices,
                            const float* weights, int nnz, const float* theta,
                            const float* delta, const float* x,
                            const float* recv, const float* coeff,
-                           const float* diag, const float* alive, float alpha,
+                           const float* diag, const float* alive,
+                           const float* alpha_p, float alpha,
                            int use_recv, int noise_self, int seeds, int m,
                            int n, int vec, float* out, float* tilde,
                            void* stream) {
@@ -786,17 +809,20 @@ int rf_round_update_sparse(const int* indptr, const int* indices,
   if (vec == 4)
     update_sparse_kernel<4><<<blocks, kSlabThreads, 0, s>>>(
         indptr, indices, weights, nnz, theta, delta, x, recv, coeff, diag,
-        alive, alpha, use_recv, noise_self, m, n, units, W, out, tilde);
+        alive, alpha_p, alpha, use_recv, noise_self, m, n, units, W, out,
+        tilde);
   else
     update_sparse_kernel<1><<<blocks, kSlabThreads, 0, s>>>(
         indptr, indices, weights, nnz, theta, delta, x, recv, coeff, diag,
-        alive, alpha, use_recv, noise_self, m, n, units, W, out, tilde);
+        alive, alpha_p, alpha, use_recv, noise_self, m, n, units, W, out,
+        tilde);
   return (int)cudaGetLastError();
 }
 
 int rf_round_update(const float* A, const float* theta, const float* delta,
                     const float* x, const float* recv, const float* coeff,
-                    const float* diag, const float* alive, float alpha,
+                    const float* diag, const float* alive,
+                    const float* alpha_p, float alpha,
                     int use_recv, int noise_self, int seeds, int m, int n,
                     int vec, float* out, float* tilde, void* stream) {
   if (seeds < 1 || seeds > 65535) return (int)cudaErrorInvalidValue;
@@ -805,12 +831,12 @@ int rf_round_update(const float* A, const float* theta, const float* delta,
                   (unsigned)seeds);
   if (vec == 4)
     update_dense_kernel<4><<<grid, kDThreads, 0, s>>>(
-        A, theta, delta, x, recv, coeff, diag, alive, alpha, use_recv,
-        noise_self, m, n, out, tilde);
+        A, theta, delta, x, recv, coeff, diag, alive, alpha_p, alpha,
+        use_recv, noise_self, m, n, out, tilde);
   else
     update_dense_kernel<1><<<grid, kDThreads, 0, s>>>(
-        A, theta, delta, x, recv, coeff, diag, alive, alpha, use_recv,
-        noise_self, m, n, out, tilde);
+        A, theta, delta, x, recv, coeff, diag, alive, alpha_p, alpha,
+        use_recv, noise_self, m, n, out, tilde);
   return (int)cudaGetLastError();
 }
 

@@ -18,6 +18,12 @@ and the hybrid backend mixes with torch ops between ``round_stats`` and
 
     dual_step     next = mixed - alpha*(coeff*x), dead rows frozen.
 
+The schedule scalars (``lam_t`` of ``round_stats``, ``alpha_t`` of
+``round_update``) are numbers, or one-element float32 tensors on the card
+that the kernel reads: a round captured in a CUDA graph
+(`repro_torch.api.round_graph`) points them into its row of the run's
+constants table, so one capture serves every round.
+
 ``round_stats`` is one launch: each block stages its slab of theta and x
 with all loads in flight at once, and the last block to finish (an int32
 ticket counter, one per seed, device and stream, from
@@ -90,14 +96,14 @@ def library() -> ctypes.CDLL:
     P, F, I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
     lib.rf_stats_scratch_float4s.argtypes = [I, I, I]
     lib.rf_stats_scratch_float4s.restype = ctypes.c_int64
-    lib.rf_round_stats.argtypes = [P, P, F, F, I, I, I, I, I, P, P, P, P, P,
-                                   P, P, P]
+    lib.rf_round_stats.argtypes = [P, P, P, F, F, I, I, I, I, I, P, P, P, P,
+                                   P, P, P, P]
     lib.rf_round_stats.restype = I
-    lib.rf_round_update.argtypes = [P, P, P, P, P, P, P, P, F, I, I, I, I,
-                                    I, I, P, P, P]
+    lib.rf_round_update.argtypes = [P, P, P, P, P, P, P, P, P, F, I, I, I,
+                                    I, I, I, P, P, P]
     lib.rf_round_update.restype = I
     lib.rf_round_update_sparse.argtypes = [P, P, P, I, P, P, P, P, P, P, P,
-                                           F, I, I, I, I, I, I, P, P, P]
+                                           P, F, I, I, I, I, I, I, P, P, P]
     lib.rf_round_update_sparse.restype = I
     lib.rf_dual_step.argtypes = [P, P, P, P, P, F, I, I, P, P]
     lib.rf_dual_step.restype = I
@@ -148,6 +154,19 @@ def _seed_shape(name: str, t: torch.Tensor) -> tuple[tuple, int, int, int]:
     return (), 1, *_node_shape(name, t)
 
 
+def _scalar(name: str, v, device: torch.device) -> tuple[int | None, float]:
+    """(pointer, value) of a schedule scalar: a Python number goes by value;
+    a one-element float32 tensor on ``device`` (a captured round's row of its
+    constants table) by pointer, its value read by the kernel."""
+    if not isinstance(v, torch.Tensor):
+        return None, float(v)
+    if v.device != device or v.dtype != torch.float32 or v.numel() != 1:
+        raise ValueError(f"{name} must be a number or a one-element float32 "
+                         f"tensor on {device}, got {v.dtype} {tuple(v.shape)} "
+                         f"on {v.device}")
+    return v.data_ptr(), 0.0
+
+
 def _vec(n: int, *ts: torch.Tensor) -> int:
     """4 when rows can be read as float4 (n % 4 == 0, 16-byte aligned
     data), else 1."""
@@ -188,14 +207,20 @@ def round_stats_plain(theta, x, lam_t, m_real, *, prox_l1: bool = True):
             ((wsum / float(m_real)) * x).sum(dim=1), wsum)
 
 
-def round_stats(theta: torch.Tensor, x: torch.Tensor, lam_t: float,
-                m_real: int, *, prox_l1: bool = True):
+def round_stats(theta: torch.Tensor, x: torch.Tensor, lam_t,
+                m_real: int, *, prox_l1: bool = True,
+                counter: torch.Tensor | None = None):
     """Per-node round statistics in one pass over theta and x.
 
     Returns ``(dot, xsq, nnz, wbdot, wsum)``: four (m,) per-node reductions
     (``nnz`` int32, the others float32) and the (n,) column sums of w —
     for an (S, m, n) seed batch, (S, m) and (S, n), one launch.
     ``m_real`` is the node count w_bar averages over (m on this path).
+    ``lam_t`` is a number, or a one-element float32 tensor on theta's
+    device that the kernel reads (a captured round's constants row).
+    ``counter``: the kernel's int32 ticket counters (at least S, zeroed) in
+    place of the stream's (`launch.stream_counter`): a captured round owns
+    its own.
     """
     lead, S, m, n = _seed_shape("theta", theta)
     dev = theta.device
@@ -205,6 +230,7 @@ def round_stats(theta: torch.Tensor, x: torch.Tensor, lam_t: float,
         if not on_card(dev, "round_stats"):
             return round_stats_plain(theta, x, lam_t, m_real, prox_l1=prox_l1)
         lib = library()
+        lam_p, lam_v = _scalar("lam_t", lam_t, dev)
         vec = _vec(n, theta, x)
         scratch = torch.empty(4 * S * int(lib.rf_stats_scratch_float4s(m, n,
                                                                        vec)),
@@ -215,10 +241,12 @@ def round_stats(theta: torch.Tensor, x: torch.Tensor, lam_t: float,
         wsum = torch.empty((*lead, n), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev)
+            if counter is None:
+                counter = stream_counter("round_stats", dev, stream, S)
             code = lib.rf_round_stats(
-                theta.data_ptr(), x.data_ptr(), float(lam_t), float(m_real),
+                theta.data_ptr(), x.data_ptr(), lam_p, lam_v, float(m_real),
                 int(bool(prox_l1)), S, m, n, vec, scratch.data_ptr(),
-                stream_counter("round_stats", dev, stream, S).data_ptr(),
+                counter.data_ptr(),
                 dot.data_ptr(), xsq.data_ptr(), nnz.data_ptr(),
                 wbdot.data_ptr(), wsum.data_ptr(), stream.cuda_stream)
         _raise_on_error(code, "round_stats")
@@ -377,7 +405,7 @@ def round_update_plain(A, theta, delta, x, recv, coeff, diag, alive,
 
 def round_update(A: torch.Tensor, theta: torch.Tensor, delta: torch.Tensor,
                  x: torch.Tensor, recv: torch.Tensor, coeff: torch.Tensor,
-                 diag: torch.Tensor, alive: torch.Tensor, alpha_t: float,
+                 diag: torch.Tensor, alive: torch.Tensor, alpha_t,
                  use_recv: int, noise_self: bool,
                  csr: MixCSR | None = None):
     """Fused noise-add + gossip mix + dual step + crash freeze.
@@ -385,8 +413,10 @@ def round_update(A: torch.Tensor, theta: torch.Tensor, delta: torch.Tensor,
     ``A`` is the (m, m) mixing matrix, ``recv`` the stale broadcast block
     read when ``use_recv`` is set (any (m, n) tensor otherwise), ``coeff``
     the clipped hinge coefficient (grad = coeff * x), ``alive`` 1.0 except
-    on frozen rows. ``csr``, A's CSR form, selects the sparse path on the
-    card (m <= ``SPARSE_MAX_NODES``); without it the dense path runs.
+    on frozen rows. ``alpha_t`` is a number, or a one-element float32
+    tensor on theta's device that the kernel reads. ``csr``, A's CSR form,
+    selects the sparse path on the card (m <= ``SPARSE_MAX_NODES``);
+    without it the dense path runs.
     Returns ``(theta_next, tilde)``. For a seed batch theta, delta, x,
     recv are (S, m, n), coeff and alive (S, m), and so are the outputs; A,
     ``csr`` and diag are shared.
@@ -421,8 +451,9 @@ def round_update(A: torch.Tensor, theta: torch.Tensor, delta: torch.Tensor,
         out = torch.empty((*lead, m, n), dtype=torch.float32, device=dev)
         tilde = torch.empty((*lead, m, n), dtype=torch.float32, device=dev)
         vec = _vec(n, theta, delta, x, recv)
-        flags = (float(alpha_t), int(bool(use_recv)), int(bool(noise_self)), S,
-                 m, n, vec, out.data_ptr(), tilde.data_ptr())
+        flags = (*_scalar("alpha_t", alpha_t, dev), int(bool(use_recv)),
+                 int(bool(noise_self)), S, m, n, vec, out.data_ptr(),
+                 tilde.data_ptr())
         rows = (theta.data_ptr(), delta.data_ptr(), x.data_ptr(),
                 recv.data_ptr(), coeff.data_ptr(), diag.data_ptr(),
                 alive.data_ptr())

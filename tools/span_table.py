@@ -151,7 +151,8 @@ def host_table(summary: dict) -> dict:
 def host_metrics(tracer) -> dict:
     """The host-side readings of a ring run's spans: each kernel wrapper's
     host time a launch, the round's host time outside its kernel wrappers,
-    and run()'s time outside its chunks."""
+    and run()'s time outside its chunks; where the round replays from a
+    CUDA graph, the host time a replay and a capture's."""
     by = {}
     for s in tracer.spans:
         by.setdefault(s.name, []).append(s.duration_s)
@@ -163,6 +164,12 @@ def host_metrics(tracer) -> dict:
     if rounds:
         out["torch_ops_host_us_per_round"] = \
             (sum(rounds) - sum(kern)) / len(rounds) * 1e6
+    if by.get("round.replay"):
+        out["replay_host_us_per_round"] = \
+            sum(by["round.replay"]) / len(by["round.replay"]) * 1e6
+    if by.get("round.capture"):
+        out["capture_host_ms"] = \
+            sum(by["round.capture"]) / len(by["round.capture"]) * 1e3
     if by.get("run"):
         out["run_overhead_ms_per_run"] = \
             (sum(by["run"]) - sum(by.get("run.chunk", []))) \
