@@ -269,6 +269,22 @@ Phases (any failure raises, and the script exits non-zero):
                inf, eps 1, all-reduce AdamW; minicpm-2b reduced, 4 nodes,
                60 steps) with finite losses, ce start and end, wall.
 
+23. gossip update — ``GossipDP.update`` on the card with the paper's
+               stages (ring, Laplace eps 1 coordinate, l1, per-node L2)
+               takes its one-pass kernel (``kernels.gossip_update``, one
+               launch a leaf, ``gossip.fused_leaves``) and equals its eager
+               chain bit for bit (theta, sparsity, gradient norm, the
+               generator's next draw) on the leaves of 21b's gossip step
+               (4 nodes, read from the model on meta: the embedding, then
+               the ten others, each layer kind stacked over the 8 layers,
+               with their gradients' dtypes), at the gossip cell's lam and
+               at one that zeroes most of the primal; then the kernel's
+               time (CUDA events over queued calls) on the embedding leaf
+               and on the ten others beside its bound and its plain
+               version (the stages' own ops). The kernels line's ``launches`` are 21b's eps-1 steps
+               (one a leaf a step, required there), ``check_launches``
+               this phase's.
+
 Before the last line it prints one ``{"kernels": [...]}`` JSON line (time,
 bound, plain-version time and launches of every kernel), and last
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or outside the
@@ -305,6 +321,8 @@ UPDATE_FLAGS = tuple(itertools.product((0, 1), (True, False)))
 SOURCE = "src/repro_torch/csrc/round_fused.cu"
 ROUND_KERNELS = ("round_stats", "round_update", "dual_step")
 REPLACES = {
+    "gossip_update": "none (GossipDP.update's eager chain, "
+                     "src/repro_torch/core/gossip.py)",
     "round_stats": "src/repro/kernels/round_fused.py:130",
     "round_update": "src/repro/kernels/round_fused.py:194",
     "round_update_dense": "src/repro/kernels/round_fused.py:194",
@@ -314,7 +332,8 @@ REPLACES = {
     "pdomd_update": "src/repro/kernels/pdomd_update.py:49",
     "hinge_grad": "src/repro/kernels/hinge_grad.py:57",
 }
-SEED_SOURCES = {"pdomd_update": "src/repro_torch/csrc/pdomd_update.cu",
+SEED_SOURCES = {"gossip_update": "src/repro_torch/csrc/gossip_update.cu",
+                "pdomd_update": "src/repro_torch/csrc/pdomd_update.cu",
                 "hinge_grad": "src/repro_torch/csrc/hinge_grad.cu"}
 PAPER_T = 100_000 // MAIN_M                  # 1,562 rounds
 N_PAD = -(-MAIN_N // 128) * 128              # 10,112: n to a multiple of 128
@@ -372,8 +391,9 @@ def build_phase() -> float:
         ptxas = [ln for ln in lib.with_suffix(".log").read_text().splitlines()
                  if "registers" in ln or "spill" in ln]
         log(f"built {lib.name}: " + " | ".join(ln.strip() for ln in ptxas))
-    from repro_torch.kernels import hinge_grad, pdomd_update, round_fused
-    for module in (round_fused, pdomd_update, hinge_grad):
+    from repro_torch.kernels import (gossip_update, hinge_grad,
+                                     pdomd_update, round_fused)
+    for module in (round_fused, pdomd_update, hinge_grad, gossip_update):
         module.library()
     log(f"build: {secs:.1f} s")
     return secs
@@ -3455,7 +3475,10 @@ def lm_minicpm_phase(card: str) -> dict:
     steps at eps = 1 (coordinate calibration) and 5 at eps = inf (the
     same batch on every node from equal params, deterministic algorithms
     on: the nodes' theta must stay equal bit for bit), through
-    `make_gossip_train_step` and run()'s custom mode; then 5 all-reduce
+    `make_gossip_train_step` and run()'s custom mode, with the ambient
+    telemetry on: at eps = 1 every leaf of every step takes the fused
+    update (``gossip.fused_leaves`` and one `gossip_update` launch a leaf
+    a step), at eps = inf the eager chain (no launch); then 5 all-reduce
     AdamW steps on the same 8 x 512 tokens a step.
 
     Its multi-GB leaves fragment the caching allocator past the card's
@@ -3478,9 +3501,11 @@ def _lm_minicpm_phase(card: str) -> dict:
     import dataclasses
     import warnings
     import torch
+    import repro_torch.obs as obs
     from repro_torch.core import tree
     from repro_torch.data import lm_batches
     from repro_torch.device import synchronize
+    from repro_torch.kernels import gossip_update as gu
     from repro_torch.launch import steps as steps_lib
     from repro_torch.models import build_model
     dev = torch.device(DEVICE)
@@ -3513,11 +3538,26 @@ def _lm_minicpm_phase(card: str) -> dict:
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
                 state, _ = step_fn(state, next(batches))   # warm-up
+                gu.reset_launches()
+                tel = obs.enable()
                 res, times = _timed_run(recipe.to_runspec(MINICPM_NODES),
                                         "gossip", step_fn, state, batches,
                                         dev)
         finally:
+            obs.disable()
             torch.use_deterministic_algorithms(False)
+        # every leaf of every timed step: the fused update at eps = 1, the
+        # eager chain at eps = inf (no noise drawn)
+        leaves = MINICPM_STEPS * len(tree.leaves(state.gossip.theta))
+        counts = {k: v for k, v in tel.metrics.snapshot().items()
+                  if k.startswith("gossip.")}
+        launches = gu.gossip_update.launches
+        want = ({"gossip.eager_leaves": leaves}, 0) if same else (
+            {"gossip.fused_leaves": leaves}, leaves)
+        require((counts, launches) == want,
+                f"lm {MINICPM} gossip eps={eps}: {counts}, {launches} "
+                f"gossip_update launches over {MINICPM_STEPS} steps, want "
+                f"{want}")
         warned = sorted({str(w.message).split(".")[0][:80] for w in caught})
         del state
         hist = res.history
@@ -3528,7 +3568,8 @@ def _lm_minicpm_phase(card: str) -> dict:
                "tokens_per_s": tokens / statistics.median(times),
                "peak_gb": peak, "theta_gb": theta_gb,
                "noise_scale": hist[0]["noise_scale"],
-               "sparsity": [h["theta_sparsity"] for h in hist]}
+               "sparsity": [h["theta_sparsity"] for h in hist],
+               "update_leaves": counts, "launches": launches}
         require(all(math.isfinite(v) for v in row["losses"]),
                 f"lm {MINICPM} gossip eps={eps}: loss not finite")
         require((row["noise_scale"] > 0) == (eps != math.inf) and
@@ -3573,7 +3614,8 @@ def _lm_minicpm_phase(card: str) -> dict:
             f"{[round(t * 1e3, 1) for t in times]} = "
             f"{row['tokens_per_s']:.0f} tokens/s, of which one node's "
             f"forward and backward alone {row['node_grad_ms']:.1f} ms (x "
-            f"{MINICPM_NODES}); theta {theta_gb:.2f} GB "
+            f"{MINICPM_NODES}); update {counts}, {launches} gossip_update "
+            f"launches; theta {theta_gb:.2f} GB "
             f"f32, peak memory {peak:.2f} GB"
             + (f"; nodes' theta {row['nodes_equal']}" if same else "")
             + f" | {card}")
@@ -3937,6 +3979,198 @@ def lm_dryrun_phase(card: str, smi: str) -> dict:
     return {"dryrun": dry, "roofline": roofline, "example": example}
 
 
+# -- 23. the gossip step's fused update ---------------------------------------
+
+GOSSIP_NODES = 4
+# (alpha0, lam): the gossip cell's, and one whose primal is mostly zeros
+GOSSIP_RULES = ((0.01, 1e-5), (0.01, 2.0))
+
+
+def gossip_leaves() -> dict:
+    """The gossip LM step's theta leaves a node, as (shape, gradient dtype):
+    phase 21b's minicpm-2b (8 layers, each leaf kind stacked over them),
+    read from the model built on ``meta``. Split into the embedding and the
+    rest (the layer stacks and the final norm)."""
+    import dataclasses
+    from repro_torch.core import tree
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(_lm_config(MINICPM), num_layers=MINICPM_LAYERS)
+    params = build_model(cfg, "meta").init(0)
+    leaves = {k: (tuple(t.shape), t.dtype)
+              for k, t in tree.flatten_with_path(params)}
+    return {"embedding": {"embed/table": leaves.pop("embed/table")},
+            "layers": leaves}
+
+
+def _gossip_tree(leaves: dict, seed: int, dev):
+    """A node-stacked theta (f32, ~N(0, 0.02^2)) and gradients in each
+    leaf's dtype whose per-node norm is well above the clip bound 1, leaf
+    ``k`` of shape (GOSSIP_NODES,) + its shape."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    theta, grads = {}, {}
+    for k, (shape, dtype) in leaves.items():
+        full = (GOSSIP_NODES,) + shape
+        theta[k] = 0.02 * torch.randn(full, generator=g, device=dev)
+        grads[k] = (1e-3 * torch.randn(full, generator=g,
+                                       device=dev)).to(dtype)
+    return theta, grads
+
+
+def _eager_twin(gdp):
+    """``gdp`` with its Laplace mechanism under a subclass that changes
+    nothing: the dispatch hands it to the eager chain."""
+    import dataclasses
+    from repro_torch.api.mechanisms import LaplaceMechanism
+
+    @dataclasses.dataclass(frozen=True)
+    class SameLaplace(LaplaceMechanism):
+        pass
+
+    mech = gdp.mechanism
+    return dataclasses.replace(gdp, mechanism=SameLaplace(**{
+        f.name: getattr(mech, f.name) for f in dataclasses.fields(mech)
+        if f.init}))
+
+
+def _gossip_check(leaves: dict, what: str, card: str) -> int:
+    """One update of a tree of ``leaves`` by the fused path and by the
+    eager chain from one state and seed, bit for bit, at each of
+    GOSSIP_RULES; returns the fused runs' kernel launches."""
+    import torch
+    import repro_torch.obs as obs
+    from repro_torch.api import RunSpec
+    from repro_torch.kernels import gossip_update as gu
+    dev = torch.device(DEVICE)
+    theta, grads = _gossip_tree(leaves, seed=len(leaves), dev=dev)
+    launched = 0
+    for alpha0, lam in GOSSIP_RULES:
+        gdp = RunSpec(nodes=GOSSIP_NODES, mixer="ring", eps=1.0,
+                      calibration="coordinate", clip_norm=1.0,
+                      alpha0=alpha0, lam=lam).build_distributed()
+        outs = {}
+        for path, g in (("eager", _eager_twin(gdp)), ("fused", gdp)):
+            state = g.init(theta, seed=5, device=dev)
+            tel = obs.enable()
+            before = gu.gossip_update.launches
+            try:
+                new, metrics = g.update(state, grads)
+            finally:
+                obs.disable()
+            snap = tel.metrics.snapshot()
+            nxt = torch.rand(8, generator=new.generator, device=dev)
+            torch.cuda.synchronize()
+            outs[path] = (new.theta, metrics, nxt, snap,
+                          gu.gossip_update.launches - before)
+            del state, new
+        (et, em, en, es, el), (ft, fm, fn, fs, fl) = outs["eager"], outs[
+            "fused"]
+        require(es == {"gossip.eager_leaves": len(leaves)} and el == 0,
+                f"gossip update ({what}): the eager run read {es}, {el} "
+                "launches")
+        require(fs == {"gossip.fused_leaves": len(leaves)}
+                and fl == len(leaves),
+                f"gossip update ({what}): the fused run read {fs}, {fl} "
+                "launches")
+        launched += fl
+        for k in et:
+            if not torch.equal(et[k], ft[k]):
+                diff = (et[k] - ft[k]).abs()
+                raise AssertionError(
+                    f"gossip update ({what}, lam {lam}): leaf {k} differs "
+                    f"from the eager chain at {int((diff > 0).sum())} of "
+                    f"{diff.numel()} coordinates, max {float(diff.max()):.3g}")
+        for key in ("theta_sparsity", "grad_norm_mean"):
+            require(torch.equal(em[key], fm[key]),
+                    f"gossip update ({what}, lam {lam}): {key} "
+                    f"{float(em[key])!r} (eager) against "
+                    f"{float(fm[key])!r} (fused)")
+        require(torch.equal(en, fn), f"gossip update ({what}): the "
+                "generator's next draw differs")
+        log(f"gossip update ({what}: {len(leaves)} leaves of "
+            f"{GOSSIP_NODES} nodes, alpha0 {alpha0}, lam {lam}): fused "
+            f"equals the eager chain bit for bit; sparsity "
+            f"{float(fm['theta_sparsity']):.6f}, {fl} launches | {card}")
+        del outs, et, ft
+    return launched
+
+
+def _gossip_timing(leaves: dict, what: str, card: str) -> dict:
+    """Time of the kernel over a tree's leaves (one call a leaf), beside
+    its bound and the plain version's (the stages' own ops). By CUDA events
+    over calls queued behind a sleeping kernel (`_queued_ms`): a profiler
+    session here can come back with part of its device events missing
+    (the ten leaves once read 3.8 ms against an 8.2 ms bound), and the
+    card's gaps between these ms-long kernels are a few us."""
+    import torch
+    from repro_torch.api.mixers import RingRollMixer
+    from repro_torch.kernels import gossip_update as gu
+    from repro_torch.kernels.work import work
+    dev = torch.device(DEVICE)
+    theta, grads = _gossip_tree(leaves, seed=7, dev=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    us = {k: torch.rand(t.shape, generator=g, device=dev)
+          for k, t in theta.items()}
+    factor = torch.full((GOSSIP_NODES,), 0.5, device=dev)
+    zeros = torch.zeros(1, dtype=torch.int64, device=dev)
+    args = (0.02, 0.01, 1e-7, RingRollMixer(m=GOSSIP_NODES))
+
+    def kern():
+        for k in theta:
+            gu.gossip_update(theta[k], us[k], grads[k], factor, *args, zeros)
+
+    def plain():
+        for k in theta:
+            gu.gossip_update_plain(theta[k], us[k], grads[k], factor, *args)
+
+    kern()
+    plain()
+    ms = _queued_ms(kern, reps=10, repeats=5)
+    plain_ms = _queued_ms(plain, reps=2, repeats=3)
+    nbytes = flops = 0
+    for k, t in theta.items():
+        b, f = work("gossip_update", GOSSIP_NODES,
+                    t.numel() // GOSSIP_NODES,
+                    grad_bytes=grads[k].element_size())
+        nbytes, flops = nbytes + b, flops + f
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+    log(f"kernel gossip_update ({what}, {len(leaves)} leaves of "
+        f"{GOSSIP_NODES} nodes): {ms:.4f} ms by CUDA events (median) | "
+        f"{nbytes / 1e9:.3f} GB, bound {bound_ms:.4f} ms at 3.35 TB/s "
+        f"(bytes), {100 * bound_ms / ms:.1f} % of it | plain version "
+        f"{plain_ms:.4f} ms | {card}")
+    return dict(name="gossip_update", route="cuda",
+                source=SEED_SOURCES["gossip_update"],
+                replaces=REPLACES["gossip_update"], what=what, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                library_ms=None)
+
+
+def gossip_update_phase(card: str) -> dict:
+    """Phase 23: the fused gossip update held to its eager chain on the
+    gossip LM step's own leaves, then timed. Returns the kernels line's
+    entry (``check_launches``: this phase's launches)."""
+    import torch
+    groups = gossip_leaves()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        launched = sum(_gossip_check(leaves, what, card)
+                       for what, leaves in groups.items())
+        torch.cuda.empty_cache()
+        layers = _gossip_timing(groups["layers"], "layers", card)
+        torch.cuda.empty_cache()
+        entry = _gossip_timing(groups["embedding"], "embedding", card)
+        torch.cuda.empty_cache()
+    finally:
+        torch.cuda.memory._set_allocator_settings(
+            "expandable_segments:False")
+    entry["layers"] = {k: layers[k] for k in ("ms", "plain_ms", "bound_ms")}
+    entry["check_launches"] = launched
+    return entry
+
+
 PATHS = {"round_stats": "main, serve", "round_update": "main, serve",
          "dual_step": "hybrid (phase 6, complete, time_varying, faults)",
          "pdomd_update": "ops", "hinge_grad": "ops"}
@@ -3972,8 +4206,12 @@ def main() -> int:
     figures = figures_phase(sweep13, card)
     ablations = ablations_phase(card)
     lm_phase(card)
-    lm_train_serve_phase(card)
+    lm_gossip = lm_train_serve_phase(card)["minicpm"]["gossip_eps_1.0"]
     lm_dryrun_phase(card, smi)
+    gossip_entry = gossip_update_phase(card)
+    gossip_entry["launches"] = lm_gossip["launches"]
+    gossip_entry["path"] = (f"gossip LM step (phase 21b, {MINICPM_STEPS} "
+                            "steps at eps 1)")
     hybrid = {"hybrid": launches["dual_step"],
               **{name: run["launches"]["dual_step"]
                  for name, run in topologies.items()
@@ -4017,6 +4255,7 @@ def main() -> int:
     for name, entry in shard["kernels"].items():
         entry["path"] = f"node-sharded, {entry['shards']} shards (phase 17)"
         kernels[name] = entry
+    kernels["gossip_update"] = gossip_entry
     log("topologies (rounds/s, accuracy, regret[-1]): " + json.dumps(
         {name: [run["rounds_per_sec"], run["accuracy"], run["regret_last"]]
          for name, run in topologies.items()}))

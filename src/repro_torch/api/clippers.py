@@ -29,7 +29,7 @@ from repro_torch.api.registry import CLIPPERS
 from repro_torch.core import tree
 
 __all__ = ["Clipper", "PerNodeL2Clipper", "ValueClipper", "NoClipper",
-           "per_node_norms", "clip_factor"]
+           "per_node_norms", "clip_factor", "scale_nodes"]
 
 
 def per_node_norms(grads: Any) -> torch.Tensor:
@@ -50,6 +50,13 @@ def clip_factor(norms: torch.Tensor, max_norm: float) -> torch.Tensor:
     return torch.clamp_max(bound / torch.clamp_min(norms, 1e-12), 1.0)
 
 
+def scale_nodes(leaf: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
+    """``leaf`` with node i's slice (axis 0) times ``factor[i]``, in the
+    leaf's dtype."""
+    f = factor.reshape((-1,) + (1,) * (leaf.dim() - 1))
+    return (leaf * f).to(leaf.dtype)
+
+
 @runtime_checkable
 class Clipper(Protocol):
     """Gradient-bounding stage. Returns (clipped, (m,) pre-clip norms)."""
@@ -64,15 +71,17 @@ class PerNodeL2Clipper:
 
     max_norm: float = 1.0
 
-    def clip(self, grads):
+    def factor(self, grads) -> tuple[torch.Tensor, torch.Tensor]:
+        """((m,) clip factors, (m,) pre-clip norms): what ``clip`` scales
+        each node's slice by (the fused gossip update applies it in its
+        kernel)."""
         norms = per_node_norms(grads)
-        factor = clip_factor(norms, self.max_norm)
+        return clip_factor(norms, self.max_norm), norms
 
-        def scale(leaf):
-            f = factor.reshape((-1,) + (1,) * (leaf.dim() - 1))
-            return (leaf * f).to(leaf.dtype)
-
-        return tree.tree_map(scale, grads), norms
+    def clip(self, grads):
+        factor, norms = self.factor(grads)
+        return tree.tree_map(lambda leaf: scale_nodes(leaf, factor),
+                             grads), norms
 
 
 @dataclasses.dataclass(frozen=True)

@@ -282,8 +282,13 @@ class RingRollMixer(MixerBase):
     self_weight: float = 0.5
     delay: int = 0
 
+    @property
+    def nbr_weight(self) -> float:
+        """Each ring neighbour's weight, (1 - self_weight) / 2."""
+        return (1.0 - self.self_weight) / 2.0
+
     def apply(self, x, t):
-        nw = (1.0 - self.self_weight) / 2.0
+        nw = self.nbr_weight
         return (self.self_weight * x
                 + nw * torch.roll(x, 1, dims=0)
                 + nw * torch.roll(x, -1, dims=0))

@@ -16,6 +16,18 @@ keeps ``run(engine="sim")`` and ``run(engine="dist")`` bit-identical.
 A mixer with ``delay > 0`` makes the state carry a history ring per leaf,
 (delay+1, m, ...), written in place each round.
 
+``update`` with the paper's stages exactly (a synchronous `RingRollMixer`
+with no fault schedule, the port's own `LaplaceMechanism` noising every
+copy at a scale above 0, `OMDLassoRule` with the l1 prox,
+`PerNodeL2Clipper`) makes one `kernels.gossip_update` call a leaf: the same
+draw from the generator, then noise, mix, clipped dual step and the
+primal's zero count, one kernel pass on the card and the wrapper's plain
+version on the CPU (and on the dry-run's ``meta`` tensors, where an op
+count takes the kernel's work as one row on any device), bit for bit the
+eager chain. Any other stage, or a subclass of one, keeps the eager
+chain. The ambient telemetry counts the leaves of each path
+(``gossip.fused_leaves``, ``gossip.eager_leaves``).
+
 >>> import torch
 >>> from repro_torch.api import RunSpec
 >>> gdp = RunSpec(nodes=4, alpha0=0.5, lam=1e-3).build_distributed()
@@ -35,12 +47,13 @@ import torch
 
 from repro_torch.api.clippers import Clipper, PerNodeL2Clipper
 from repro_torch.api.mechanisms import LaplaceMechanism, Mechanism
-from repro_torch.api.mixers import Mixer, ring_write
+from repro_torch.api.mixers import Mixer, RingRollMixer, ring_write
 from repro_torch.api.rules import LocalRule, OMDLassoRule, StepContext
-from repro_torch.core import prox, tree
+from repro_torch.core import privacy, prox, tree
 from repro_torch.core.omd import OMDConfig
 from repro_torch.device import MetaGenerator, shape_device
-from repro_torch.obs import span
+from repro_torch.kernels.gossip_update import GRAD_DTYPES, gossip_update
+from repro_torch.obs import active, span
 
 __all__ = ["GossipState", "GossipDP", "gossip_mix_tree", "per_node_clip"]
 
@@ -89,6 +102,12 @@ def gossip_mix_tree(theta: Any, generator: torch.Generator, noise_scale,
         mixed.append(mixer.mix_history(leaf, tilde, hist, noise_self, t))
     mixed = tree.unflatten(spec, mixed)
     return mixed if history is None else (mixed, history)
+
+
+def _count(name: str, leaves: int) -> None:
+    tel = active()
+    if tel.enabled:
+        tel.metrics.counter(name).inc(leaves)
 
 
 def per_node_clip(grads: Any, max_norm: float) -> tuple[Any, torch.Tensor]:
@@ -168,16 +187,46 @@ class GossipDP:
         return tree.tree_map(lambda th: self.local_rule.primal(th, ctx),
                              state.theta)
 
+    def _fusable(self, grads: Any, scale: float) -> bool:
+        """Whether ``update`` takes `kernels.gossip_update`: the paper's
+        stages exactly (no subclass: one may draw, mix or clip another way;
+        a faulty or delayed ring is a mixer of another type), noise drawn
+        (scale > 0) and bfloat16 or float32 gradients."""
+        mixer, mech, rule = self.mixer, self.mechanism, self.local_rule
+        return (type(mixer) is RingRollMixer and mixer.delay == 0
+                and type(mech) is LaplaceMechanism and mech.noise_self
+                and float(scale) > 0.0
+                and type(rule) is OMDLassoRule and rule.prox_kind == "l1"
+                and type(self.clipper) is PerNodeL2Clipper
+                and all(g.dtype in GRAD_DTYPES for g in tree.leaves(grads)))
+
     def update(self, state: GossipState,
                grads: Any) -> tuple[GossipState, dict]:
         """Steps 10-11 for every node at once."""
         ctx = self._ctx(state.t + 1)
+        n = self.param_count_per_node(state.theta)
+        scale = self.mechanism.scale(ctx.alpha_t, n)
+        path = (self._fused_update if self._fusable(grads, scale)
+                else self._eager_update)
+        new_state, gnorms, sparsity = path(state, grads, ctx, scale)
+        metrics = {
+            "alpha_t": ctx.alpha_t,
+            "noise_scale": scale,
+            "grad_norm_mean": torch.mean(gnorms),
+            "theta_sparsity": sparsity,
+        }
+        return new_state, metrics
+
+    def _eager_update(self, state: GossipState, grads: Any, ctx: StepContext,
+                      scale: float) -> tuple[GossipState, torch.Tensor,
+                                             torch.Tensor]:
+        """``update``'s stages one torch op at a time: (next state, (m,)
+        gradient norms, the next primal's zero fraction)."""
+        _count("gossip.eager_leaves", len(tree.leaves(state.theta)))
         with span("gossip.clip"):
             grads, gnorms = self.clipper.clip(grads)
 
         with span("gossip.mix"):
-            n = self.param_count_per_node(state.theta)
-            scale = self.mechanism.scale(ctx.alpha_t, n)
             new_history = state.history
             if self.delay:
                 mixed, new_history = gossip_mix_tree(
@@ -209,13 +258,36 @@ class GossipDP:
                                 history=new_history)
         with span("gossip.sparsity"):
             sparsity = self._primal_sparsity(new_state)
-        metrics = {
-            "alpha_t": ctx.alpha_t,
-            "noise_scale": scale,
-            "grad_norm_mean": torch.mean(gnorms),
-            "theta_sparsity": sparsity,
-        }
-        return new_state, metrics
+        return new_state, gnorms, sparsity
+
+    def _fused_update(self, state: GossipState, grads: Any, ctx: StepContext,
+                      scale: float) -> tuple[GossipState, torch.Tensor,
+                                             torch.Tensor]:
+        """`_eager_update` as one `kernels.gossip_update` call a leaf: each
+        leaf's uniform draw as the eager chain draws it, in leaf order; the
+        clip factors from torch's per-node norms; the next primal's zeros
+        counted into an exact integer."""
+        leaves = tree.leaves(state.theta)
+        _count("gossip.fused_leaves", len(leaves))
+        with span("gossip.clip"):
+            factor, gnorms = self.clipper.factor(grads)
+        lam_next = self._ctx(state.t + 2).lam_t
+        zeros = torch.zeros(1, dtype=torch.int64, device=leaves[0].device)
+
+        def one(th, g):
+            u = privacy.uniform(state.generator, tuple(th.shape))
+            return gossip_update(th, u, g, factor, scale, ctx.alpha_t,
+                                 lam_next, self.mixer, zeros)
+
+        with span("gossip.mix"):
+            theta_next = tree.tree_map(one, state.theta, grads)
+        new_state = GossipState(theta=theta_next, t=state.t + 1,
+                                generator=state.generator,
+                                history=state.history)
+        with span("gossip.sparsity"):
+            sparsity = prox.zero_fraction(
+                zeros[0], sum(th.numel() for th in leaves))
+        return new_state, gnorms, sparsity
 
     def _primal_sparsity(self, state: GossipState) -> torch.Tensor:
         """`prox.sparsity_tree` of :meth:`primal`, the primal made and

@@ -37,10 +37,14 @@ from repro_torch.core import tree
 
 __all__ = ["sensitivity", "laplace_scale", "sample_laplace",
            "sample_laplace_tree", "clip_by_l2", "PrivacyConfig",
-           "unit_laplace", "PrivacyAccountant"]
+           "unit_laplace", "uniform", "laplace_transform", "U_LO",
+           "U_SPAN", "PrivacyAccountant"]
 
 f32 = np.float32
 U_MIN = -0.5 + 1e-7   # lower bound on u keeps log1p(-2|u|) finite
+# the f32 shift and span of the uniform draw's affine map onto [U_MIN, 1/2)
+U_LO = float(f32(U_MIN))
+U_SPAN = float(f32(0.5) - f32(U_LO))
 
 
 def sensitivity(alpha_t, n: int, L: float) -> np.float32:
@@ -55,14 +59,26 @@ def laplace_scale(alpha_t, n: int, L: float, eps: float) -> np.float32:
     return sensitivity(alpha_t, n, L) / f32(eps)
 
 
+def laplace_transform(u: torch.Tensor) -> torch.Tensor:
+    """Laplace(0, 1) values of uniform draws ``u`` in [0, 1), via inverse
+    CDF: -sign(v) * log1p(-2|v|) with v = max(u * U_SPAN + U_LO, U_LO) ~
+    Uniform[-1/2 + 1e-7, 1/2), one f32 rounding an op (the fused gossip
+    update's kernel repeats these ops)."""
+    v = torch.clamp_min(u * U_SPAN + U_LO, U_LO)
+    return -torch.sign(v) * torch.log1p(-2.0 * v.abs())
+
+
+def uniform(generator: torch.Generator, shape) -> torch.Tensor:
+    """The float32 draws in [0, 1) that `unit_laplace` transforms: one
+    ``torch.rand`` of ``shape`` on the generator's device."""
+    return torch.rand(shape, generator=generator, dtype=torch.float32,
+                      device=generator.device)
+
+
 def unit_laplace(generator: torch.Generator, shape) -> torch.Tensor:
-    """Laplace(0, 1) draws on the generator's device, via inverse CDF:
-    -sign(u) * log1p(-2|u|) with u ~ Uniform[-1/2 + 1e-7, 1/2)."""
-    lo, hi = torch.tensor(U_MIN, dtype=torch.float32), 0.5
-    u = torch.rand(shape, generator=generator, dtype=torch.float32,
-                   device=generator.device)
-    u = torch.clamp_min(u * float(hi - lo) + float(lo), float(lo))
-    return -torch.sign(u) * torch.log1p(-2.0 * u.abs())
+    """Laplace(0, 1) draws on the generator's device: `laplace_transform`
+    of `uniform`'s draws."""
+    return laplace_transform(uniform(generator, shape))
 
 
 def sample_laplace(generator: torch.Generator, shape,

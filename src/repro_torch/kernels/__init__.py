@@ -4,8 +4,10 @@
 (``round_stats``, ``round_update``, ``dual_step``, re-exported here as
 `repro.kernels` exports them); `ops` wraps the seed kernels
 (``pdomd_update``, ``hinge_grad``) for parameter pytrees; `ref` names the
-plain versions as the reference names its oracles. Every kernel is built
-from ``src/repro_torch/csrc/`` at first use (`build`).
+plain versions as the reference names its oracles; `gossip_update` is the
+port's own, `GossipDP.update`'s one pass a leaf on the card (no TPU
+kernel behind it). Every kernel is built from ``src/repro_torch/csrc/`` at
+first use (`build`).
 
 ``MAX_FUSED_NODES`` is the port's own bound: the cuda backend's default
 ``max_fused_nodes``, past which ``mode="auto"`` takes the hybrid path. The

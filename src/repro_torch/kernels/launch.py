@@ -1,8 +1,9 @@
 """What every kernel wrapper of the port does around a launch.
 
 A wrapper given CPU tensors computes its kernel's plain PyTorch version
-(that is how the CPU tests run); given CUDA tensors it launches the kernel
-or raises, and never falls back. `on_card` makes that choice, `check`
+(that is how the CPU tests run), and given ``meta`` tensors the same on
+shapes alone (the dry-run's count); given CUDA tensors it launches the
+kernel or raises, and never falls back. `on_card` makes that choice, `check`
 turns a launch's CUDA error code into an exception, `aligned` hands a
 kernel that loads 16 bytes at a time a 16-byte-aligned tensor, and
 `stream_counter` gives a kernel that synchronises its blocks through device
@@ -19,11 +20,13 @@ __all__ = ["on_card", "check", "aligned", "stream_counter"]
 
 
 def on_card(device: torch.device, name: str) -> bool:
-    """True to launch the kernel (CUDA), False for the plain version (CPU)."""
-    if device.type == "cpu":
+    """True to launch the kernel (CUDA), False for the plain version (CPU,
+    or meta)."""
+    if device.type in ("cpu", "meta"):
         return False
     if device.type != "cuda":
-        raise ValueError(f"{name} takes CPU or CUDA tensors, got {device}")
+        raise ValueError(f"{name} takes CPU, meta or CUDA tensors, got "
+                         f"{device}")
     return True
 
 

@@ -33,7 +33,7 @@ __all__ = ["work", "scope", "counting", "active"]
 
 
 def work(name: str, m: int, n: int, nnz: int | None = None,
-         seeds: int = 1) -> tuple[int, int]:
+         seeds: int = 1, grad_bytes: int = 4) -> tuple[int, int]:
     """(bytes, flops) of one launch at the main path's flags: each input
     read once, each output written once. For ``round_update`` the mix is
     the dense (m, m) A (m^2 floats in, 2 m^2 n flops) unless ``nnz`` is
@@ -41,7 +41,9 @@ def work(name: str, m: int, n: int, nnz: int | None = None,
     2 nnz n flops) — the ring's 3 m on the main path. ``seeds`` > 1: a
     batched launch, every per-seed array S times, the mix and diag once
     (the seeds share them). ``pdomd_update`` takes (rows, 128) as (m, n),
-    ``hinge_grad`` (B, n), ``dual_step`` its (m, n) rows."""
+    ``hinge_grad`` (B, n), ``dual_step`` its (m, n) rows, ``gossip_update``
+    a leaf's m nodes of n coordinates, its gradient ``grad_bytes`` an
+    element."""
     mn, S = m * n, seeds
     if name == "round_stats":      # theta, x in; dot, xsq, nnz, wbdot, wsum
         return S * 4 * (2 * mn + 4 * m + n), S * 12 * mn
@@ -56,6 +58,8 @@ def work(name: str, m: int, n: int, nnz: int | None = None,
         return 4 * (mn + 3 * m + 2 * n), 4 * mn
     if name == "dual_step":        # mixed, x, theta, coeff, alive in; out
         return 4 * (3 * mn + 2 * m + mn), 3 * mn
+    if name == "gossip_update":    # theta, u, grad, factor in; next, zeros
+        return (12 + grad_bytes) * mn + 4 * m + 8, 25 * mn
     raise ValueError(f"no work count for kernel {name!r}")
 
 

@@ -109,7 +109,8 @@ def test_a_toy_traced_lm_run_holds_the_spans_and_reads_no_device_time(cell):
     names = {s[0] for s in spans.program_spans(tr)}
     want = {"step.grad", "step.forward", "step.backward", "step.update"}
     if cell == "minicpm2b_gossip_eps1":
-        want |= {"step.primal", "gossip.mix", "gossip.dual_step"}
+        want |= {"step.primal", "gossip.clip", "gossip.mix",
+                 "gossip.sparsity"}
     assert want <= names, want - names
     assert not tr.device
     for name in METRICS:

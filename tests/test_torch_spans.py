@@ -3,8 +3,9 @@
 A dead span is the shared no-op; a live one reaches the ambient tracer, a
 recording ``torch.profiler`` session as a prefixed host annotation on the
 profiler's clock, or both; nested spans carry their parent's id; and the
-ring run, the gossip step and the AdamW step record every span of their
-paths while their outputs equal the untraced ones bit for bit.
+ring run, the gossip step (the fused update, and the eager chain at
+eps = inf) and the AdamW step record every span of their paths while
+their outputs equal the untraced ones bit for bit.
 """
 import json
 import time
@@ -27,8 +28,11 @@ RING_SPANS = {"run", "run.build", "run.compile", "run.chunk", "run.result",
               "round", "round.stats", "round.noise", "round.mix",
               "kernel.round_stats", "kernel.round_update"}
 STEP_SPANS = {"step.grad", "step.forward", "step.backward", "step.update"}
+# the paper's stages take the fused update (clip factors, then one
+# `gossip_update` call a leaf); eps = inf (no noise) the eager chain
 GOSSIP_SPANS = STEP_SPANS | {"step.primal", "gossip.clip", "gossip.mix",
-                             "gossip.dual_step", "gossip.sparsity"}
+                             "gossip.sparsity"}
+EAGER_GOSSIP_SPANS = GOSSIP_SPANS | {"gossip.dual_step"}
 NODES, B, T = 2, 1, 8
 
 
@@ -105,7 +109,7 @@ def ring_outputs():
              "eps_ledger")]
 
 
-def lm_outputs(strategy):
+def lm_outputs(strategy, eps=1.0):
     torch.manual_seed(0)
     cfg = get_config("minicpm-2b").reduced(layers=1, d_model=64, d_ff=128,
                                            vocab=128)
@@ -118,7 +122,7 @@ def lm_outputs(strategy):
                                                     dtype=torch.int32)], -1)
     batch = {"tokens": tokens, "labels": labels}
     if strategy == "gossip":
-        gdp = steps.make_gossip_dp(NODES, steps.TrainRecipe(eps=1.0))
+        gdp = steps.make_gossip_dp(NODES, steps.TrainRecipe(eps=eps))
         step = steps.make_gossip_train_step(model, gdp)
         state = steps.make_gossip_init(model, gdp, NODES)(0)
     else:
@@ -134,6 +138,8 @@ def lm_outputs(strategy):
 
 PATHS = {"ring": (ring_outputs, RING_SPANS),
          "gossip": (lambda: lm_outputs("gossip"), GOSSIP_SPANS),
+         "gossip_eager": (lambda: lm_outputs("gossip", eps=float("inf")),
+                          EAGER_GOSSIP_SPANS),
          "allreduce": (lambda: lm_outputs("allreduce"), STEP_SPANS)}
 
 
