@@ -33,11 +33,12 @@ one graph launch a round where the eager loop issues ~41 launches.
   serving snapshot, a checkpoint, ``on_chunk``'s) never changes under later
   replays.
 
-The backend builds a `RoundGraph` only on the card
-(`backends.CudaBackend._round_program`), and `RoundGraph.takes` says
-whether a chunk replays: its rounds lie in the run's plan (`plan`, which
-`runner._drive` makes) and no op count (`obs.analyze_chunk`) is in
-progress. Every other chunk runs the eager loop.
+The backend builds a `RoundGraph` only where `capturable` says so
+(`backends.CudaBackend.make_round_program`), and `program.chunk_loop`
+replays it for a chunk when `RoundGraph.takes` says so: the chunk's rounds
+lie in the run's plan (`plan`, which `runner` makes before its warm-up)
+and no op count (`obs.analyze_chunk`) is in progress. Every other chunk
+runs the eager loop.
 
 Telemetry: the capture is a ``round.capture`` span and each replay a
 ``round.replay`` span; the round body's own spans (``round.stats``,
@@ -54,14 +55,14 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.api.runner import BatchState
+from repro_torch.api.program import BatchState, pack, unpack
 from repro_torch.core.algorithm1 import RoundOutput
 from repro_torch.kernels import round_fused as rf
 from repro_torch.kernels import work
 from repro_torch.obs import span
 
 __all__ = ["RoundGraph", "round_constants", "graphable_mechanism",
-           "ALPHA", "LAM", "SCALE"]
+           "capturable", "ALPHA", "LAM", "SCALE"]
 
 ALPHA, LAM, SCALE = range(3)    # the columns of a constants row
 # (omd config, mechanism, n) -> rows from round 0: a paper run's table
@@ -126,6 +127,12 @@ def _card(device: torch.device) -> bool:
     return torch.device(device).type == "cuda"
 
 
+def capturable(mech, device: torch.device) -> bool:
+    """Whether a round that draws ``mech``'s noise on ``device`` can be
+    captured: a mechanism `graphable_mechanism` takes, on a card."""
+    return graphable_mechanism(mech) and _card(device)
+
+
 def _launch_counts() -> list:
     return [getattr(fn, attr) for fn, attr in _COUNTERS]
 
@@ -179,7 +186,7 @@ class RoundGraph:
     def __init__(self, core: Callable, unit_noise: Callable, *, engine: str,
                  omd, mech, m: int, n: int, device: torch.device):
         self.core, self.unit_noise = core, unit_noise
-        self.sim = engine == "sim"
+        self.engine = engine
         self.omd, self.mech = omd, mech
         self.m, self.n = m, n
         self.device = device
@@ -262,7 +269,7 @@ class RoundGraph:
     def __call__(self, state: BatchState, xs: torch.Tensor, ys: torch.Tensor):
         """The chunk's (state, stacked RoundOutput), as the eager loop
         gives them, bit for bit (`takes` must have said yes)."""
-        theta = state.theta if self.sim else state.theta["w"]
+        theta, hist = unpack(self.engine, state)
         S, m, K, t = theta.shape[0], self.m, int(xs.shape[0]), state.t
         b = self._cap
         if b is None or b.S != S:
@@ -292,8 +299,5 @@ class RoundGraph:
                   for i in range(2)]
         loss, correct, wb_loss, sparsity = (
             f.clone(memory_format=torch.contiguous_format) for f in fields)
-        nxt = BatchState(theta=theta_next if self.sim else {"w": theta_next},
-                         t=t + K, generators=state.generators,
-                         history=state.history)
-        return nxt, RoundOutput(loss=loss, w_bar_loss=wb_loss,
-                                sparsity=sparsity, correct=correct)
+        return pack(self.engine, state, theta_next, hist, K), RoundOutput(
+            loss=loss, w_bar_loss=wb_loss, sparsity=sparsity, correct=correct)

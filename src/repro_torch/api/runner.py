@@ -34,6 +34,11 @@ Both engines draw the same stream chunks and the same noise from a
 generator seeded alike, in the same order, so their iterates are
 bit-identical (see `core.gossip`).
 
+The chunk programs are built from the round the spec's backend makes
+(`backends`) by `program` (the chunk loop, seed batches, a one-seed run as
+a batch of one), or for a sharded node axis by `shard_node`; this module
+drives them over the horizon.
+
 `run_batch` drives S seeds of one configuration in step (`BatchState`):
 each seed's RunResult equals its own `run` bit for bit, and on the cuda
 backend one launch of each round kernel a round serves all S seeds.
@@ -51,13 +56,16 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Any, Callable, Iterator, NamedTuple
+from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
 
 from repro_torch import obs as obslib
 from repro_torch.api.exec_config import ExecConfig, resolve_exec
+from repro_torch.api.program import (BatchState, batch_init, chunk_loop,
+                                     one_seed, reference_round_program,
+                                     seed_rows_program, seed_state)
 from repro_torch.api.spec import RunSpec
 from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.core import tree
@@ -66,11 +74,8 @@ from repro_torch.device import resolve_device, synchronize
 from repro_torch.metrics import CSVLogger, MetricTracker
 
 __all__ = ["run", "run_batch", "seed_vectorizable", "RunResult",
-           "BatchState", "make_chunk_fn", "make_chunk_program",
-           "make_batch_chunk_program",
-           "reference_round_program", "reference_chunk_program",
-           "reference_batch_chunk_program", "chunk_loop", "per_seed_round",
-           "batch_init", "stack_states", "seed_state", "seed_rows_program"]
+           "make_chunk_fn", "make_chunk_program", "make_batch_chunk_program",
+           "reference_chunk_program"]
 
 
 # -- JSON round-trip ---------------------------------------------------------
@@ -241,16 +246,25 @@ class RunResult:
         return cls(**kw)
 
 
+def _programs(spec: RunSpec, engine: str, device: str | torch.device):
+    """(batch chunk_fn, one seed's init_fn) of the spec's backend."""
+    dev = resolve_device(device)
+    init_fn = reference_round_program(spec, engine, dev)[1]
+    return (chunk_loop(*spec.resolve_backend().make_round_program(
+        spec, engine, dev)), init_fn)
+
+
 def make_chunk_program(spec: RunSpec, engine: str = "sim",
                        device: str | torch.device = "cuda"):
     """(chunk_fn, init_fn) for one engine, through the spec's backend.
 
     chunk_fn(state, xs, ys) runs a chunk of rounds and returns (state,
     RoundOutput of stacked per-round tensors); init_fn(seed) builds the
-    engine state on ``device``.
+    engine state on ``device``. The round is the backend's batch round on
+    a batch of one (`program.one_seed`).
     """
-    return spec.resolve_backend().make_chunk_program(
-        spec, engine, resolve_device(device))
+    chunk_fn, init_fn = _programs(spec, engine, device)
+    return one_seed(chunk_fn, engine), init_fn
 
 
 def make_chunk_fn(spec: RunSpec, engine: str,
@@ -271,224 +285,16 @@ def make_batch_chunk_program(spec: RunSpec, engine: str = "sim",
     (C, S, m, n), ys (C, S, m), and the RoundOutput fields are stacked
     (C, S, ...). init_fn(seeds) builds the `BatchState` on ``device``.
     """
-    return spec.resolve_backend().make_batch_chunk_program(
-        spec, engine, resolve_device(device))
-
-
-def chunk_loop(round_fn: Callable, graph=None) -> Callable:
-    """chunk_fn(state, xs, ys) -> (state, stacked RoundOutput): the Python
-    loop over rounds that takes the place of the reference's lax.scan.
-
-    With ``graph`` (a `round_graph.RoundGraph` of the same round), a chunk
-    the graph takes (`RoundGraph.takes`) replays the captured round, one
-    graph launch a round, with the same outputs bit for bit. The chunk
-    program's graphs are ``chunk_fn.graphs``: `_drive` plans them for the
-    run's rounds and counts the rounds they replay."""
-    from repro_torch.core.algorithm1 import RoundOutput
-
-    def chunk_fn(state, xs, ys):
-        if graph is not None and graph.takes(state, xs):
-            return graph(state, xs, ys)
-        outs = []
-        for k in range(xs.shape[0]):
-            state, out = round_fn(state, (xs[k], ys[k]))
-            outs.append(out)
-        return state, RoundOutput(*(torch.stack(f) for f in zip(*outs)))
-
-    chunk_fn.graphs = () if graph is None else (graph,)
-    return chunk_fn
-
-
-def reference_round_program(spec: RunSpec, engine: str,
-                            device: torch.device):
-    """(round_fn, init_fn) of the torch-op engines — the reference backend
-    (and the init_fn every backend shares)."""
-    from repro_torch.core import prox
-    from repro_torch.core.algorithm1 import RoundOutput, hinge_loss_and_grad
-
-    m, n = spec.nodes, spec.dim
-    if n is None:
-        raise ValueError("RunSpec.dim is required by repro_torch.run")
-
-    if engine == "sim":
-        alg = spec.build_simulator()
-        return alg.round, lambda seed: alg.init(seed, device)
-
-    if engine == "dist":
-        gdp = spec.build_distributed()
-        loss_and_grad = spec.loss_and_grad or hinge_loss_and_grad
-
-        def round_fn(st, batch):
-            x, y = batch
-            w = gdp.primal(st)["w"]
-            loss, grad = loss_and_grad(w, x, y)
-            correct = (torch.sign(torch.sum(w * x, dim=1)) == y).to(
-                torch.float32)
-            st, _ = gdp.update(st, {"w": grad})
-            # the metric algebra of Algorithm1.round, so the two engines'
-            # trajectories compare element for element
-            w_bar = torch.mean(w, dim=0, keepdim=True)
-            wb_loss = torch.mean(torch.clamp_min(
-                1.0 - y * torch.sum(w_bar * x, dim=-1), 0.0))
-            return st, RoundOutput(loss=loss, w_bar_loss=wb_loss,
-                                   sparsity=prox.sparsity(w),
-                                   correct=correct)
-
-        def init_fn(seed):
-            return gdp.init({"w": torch.zeros((m, n), dtype=torch.float32)},
-                            seed, device)
-
-        return round_fn, init_fn
-
-    raise ValueError(f"unknown engine {engine!r}; expected 'sim' or 'dist'")
+    chunk_fn, init_fn = _programs(spec, engine, device)
+    return chunk_fn, batch_init(init_fn)
 
 
 def reference_chunk_program(spec: RunSpec, engine: str,
-                            device: torch.device):
-    """(chunk_fn, init_fn) of the reference backend."""
-    round_fn, init_fn = reference_round_program(spec, engine, device)
-    return chunk_loop(round_fn), init_fn
-
-
-# -- seed batches ------------------------------------------------------------
-
-class BatchState(NamedTuple):
-    """S runs of one configuration in step (`run_batch`): the engine's
-    theta and delay ring — a tensor (sim) or ``{"w": tensor}`` (dist) —
-    with a leading seed axis, the round counter they share, and each seed's
-    own noise generator."""
-
-    theta: Any                    # (S, m, n) or {"w": (S, m, n)}
-    t: int                        # rounds done
-    generators: tuple             # one torch.Generator per seed
-    history: Any = None           # (S, delay+1, m, n) ring, or None
-
-
-def stack_states(states) -> BatchState:
-    """The `BatchState` of per-seed engine states (all at one round); one
-    state becomes a batch of one as views of its tensors (its delay ring
-    is then written in place, as the one-seed round writes it)."""
-    stack = ((lambda t: t[None]) if len(states) == 1  # noqa: E731
-             else lambda *ts: torch.stack(ts))
-    first = states[0]
-    return BatchState(
-        theta=tree.tree_map(stack, *(s.theta for s in states)), t=first.t,
-        generators=tuple(s.generator for s in states),
-        history=(None if first.history is None else
-                 tree.tree_map(stack, *(s.history for s in states))))
-
-
-def seed_state(engine: str, state: BatchState, i: int):
-    """Seed ``i``'s engine state (`SimState` or `GossipState`) in a batch:
-    views of its slices, and its own generator."""
-    cls = _state_types()["SimState" if engine == "sim" else "GossipState"]
-    pick = lambda a: a[i]  # noqa: E731
-    return cls(theta=tree.tree_map(pick, state.theta), t=state.t,
-               generator=state.generators[i],
-               history=(None if state.history is None
-                        else tree.tree_map(pick, state.history)))
-
-
-def per_seed_round(round_fn: Callable, engine: str) -> Callable:
-    """A batch round that steps ``round_fn`` once per seed, in seed order,
-    on that seed's slices (the reference backend's batch: the plain
-    per-seed algebra, the oracle of the fused batch)."""
-    from repro_torch.core.algorithm1 import RoundOutput
-
-    def batch_round(state: BatchState, batch):
-        xs, ys = batch
-        steps = [round_fn(seed_state(engine, state, i), (xs[i], ys[i]))
-                 for i in range(len(state.generators))]
-        return (stack_states([st for st, _ in steps]),
-                RoundOutput(*(torch.stack(f)
-                              for f in zip(*(out for _, out in steps)))))
-
-    return batch_round
-
-
-def batch_init(init_fn: Callable) -> Callable:
-    """init_fn(seeds) -> the `BatchState` of the seeds' initial states."""
-    return lambda seeds: stack_states([init_fn(s) for s in seeds])
-
-
-def reference_batch_chunk_program(spec: RunSpec, engine: str,
-                                  device: torch.device):
-    """(chunk_fn, init_fn) of a seed batch on the reference backend."""
-    round_fn, init_fn = reference_round_program(spec, engine, device)
-    return chunk_loop(per_seed_round(round_fn, engine)), batch_init(init_fn)
-
-
-def _gen_to(gen: torch.Generator, dev: torch.device) -> torch.Generator:
-    """``gen`` itself on its device, else a generator on ``dev`` in the
-    same state (a CUDA generator's state — seed and offset — draws the
-    same numbers on any card)."""
-    if gen.device == dev:
-        return gen
-    out = torch.Generator(device=dev)
-    out.set_state(gen.get_state())
-    return out
-
-
-def _take_seeds(state: BatchState, idx: list, dev: torch.device,
-                real: int) -> BatchState:
-    """The seeds ``idx`` of a batch as a batch on ``dev``; an index past
-    the first ``real`` positions is a pad seed, with a generator of its
-    own (its draws are thrown away)."""
-    sel = torch.as_tensor(idx)
-    take = lambda a: a[sel.to(a.device)].to(dev)  # noqa: E731
-    gens = [_gen_to(state.generators[i], dev) if k < real
-            else _copy_gen(_gen_to(state.generators[i], dev))
-            for k, i in enumerate(idx)]
-    return BatchState(theta=tree.tree_map(take, state.theta), t=state.t,
-                      generators=tuple(gens),
-                      history=tree.tree_map(take, state.history))
-
-
-def seed_rows_program(programs: list, devices: list,
-                      device: torch.device) -> Callable:
-    """chunk_fn of a seed batch sharded over mesh rows: row r runs
-    ``programs[r]`` (a batch chunk program) on its share of the seeds, on
-    ``devices[r]``.
-
-    State and data cross it global and unpadded on ``device``: inside, the
-    S seeds are padded to a multiple of the rows with duplicates of the
-    last seed (each with its own generator copy), split into equal blocks
-    in seed order, run row by row, and gathered back with the pad seeds
-    dropped. The seeds are independent runs, so every seed's trajectory is
-    its one-device batch's, bit for bit."""
-    from repro_torch.core.algorithm1 import RoundOutput
-
-    R = len(programs)
-
-    def chunk_fn(state: BatchState, xs, ys):
-        S = len(state.generators)
-        pad = (-S) % R
-        per = (S + pad) // R
-        order = list(range(S)) + [S - 1] * pad
-        states, outs = [], []
-        for r, (program, dev) in enumerate(zip(programs, devices)):
-            idx = order[r * per:(r + 1) * per]
-            real = max(0, min(per, S - r * per))
-            sel = torch.as_tensor(idx, device=xs.device)
-            st, out = program(_take_seeds(state, idx, dev, real),
-                              xs[:, sel].to(dev), ys[:, sel].to(dev))
-            states.append((st, real))
-            outs.append(out)
-        cat = lambda *ts: torch.cat(  # noqa: E731
-            [t.to(device) for t in ts])[:S]
-        gens = tuple(_gen_to(g, device) for st, real in states
-                     for g in st.generators[:real])
-        merged = BatchState(
-            theta=tree.tree_map(cat, *(st.theta for st, _ in states)),
-            t=states[0][0].t, generators=gens,
-            history=tree.tree_map(cat, *(st.history for st, _ in states)))
-        return merged, RoundOutput(*(
-            torch.cat([f.to(device) for f in fs], dim=1)[:, :S]
-            for fs in zip(*outs)))
-
-    chunk_fn.graphs = tuple(g for p in programs
-                            for g in getattr(p, "graphs", ()))
-    return chunk_fn
+                            device: str | torch.device):
+    """(chunk_fn, init_fn) of the reference backend, whatever the spec's."""
+    return make_chunk_program(spec.replace(backend="reference",
+                                           backend_options={}),
+                              engine, device)
 
 
 def _config_eq(a: Any, b: Any) -> bool:

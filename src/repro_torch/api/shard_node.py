@@ -19,11 +19,15 @@ centres — is split over the ("node",) axis of a `repro_torch.launch.mesh.Mesh`
   roll order — self, i-1, i+1 — for a `RingRollMixer`), no atomics, so
   the sharded run equals the unsharded one bit for bit in its state, a
   rerun too, and sim == dist;
+* the round over a mesh row is the backend's ``make_local_round_fn``:
+  `reference_local_round_fn` in torch ops (the oracle) or
+  `cuda_local_round_fn` on the round kernels, the cuda round's per-node
+  algebra shared with the unsharded one (`program.hinge_coeff`);
 * `make_node_chunk_fn` wraps the round loop of a chunk so that
   `repro_torch.run(exec=ExecConfig(node_devices=D))` and `run_batch`'s
-  ("seed", "node") grid drive it like any other chunk program. State and
-  data cross the wrapper GLOBAL and unpadded, so checkpoints restore under
-  any device count.
+  ("seed", "node") grid drive it like any other chunk program (a run as a
+  batch of one, `program.one_seed`). State and data cross the wrapper
+  GLOBAL and unpadded, so checkpoints restore under any device count.
 
 One process drives every shard (the reference's single-controller model):
 a round computes each shard's block on its device, and the metrics' sums
@@ -65,13 +69,17 @@ import torch
 from repro_torch.api.mixers import (DelayedMixer, DenseMatrixMixer,
                                     MixerBase, RingRollMixer, SparseMixer,
                                     ring_write)
+from repro_torch.api.program import (batch_init, fused_stages, hinge_coeff,
+                                     one_seed, pack, per_seed,
+                                     reference_round_program, seed_rows,
+                                     seed_rows_program, unpack)
 from repro_torch.core import tree
 from repro_torch.core.graph import SparseGraph, ring_edges
 
 __all__ = ["sparse_graph_and_delay", "mix_order", "NodePartition",
            "partition_graph", "Blocks", "ShardedSparseMixer",
            "make_node_chunk_fn", "resolve_node_mesh",
-           "reference_local_round_fn"]
+           "reference_local_round_fn", "cuda_local_round_fn"]
 
 
 def sparse_graph_and_delay(mixer) -> tuple[Any, int]:
@@ -419,8 +427,7 @@ def _noise_blocks(mech, generators, m: int, n: int, scale,
                   part: NodePartition, devices) -> list:
     """Each seed's (m, n) draw from its generator — the dense engines'
     draw — zero-padded to m_pad rows, as per-shard (S, block, n) slices."""
-    from repro_torch.api.backends import _per_seed
-    delta = _pad_rows(_per_seed(lambda g: mech.sample(g, (m, n), scale),
+    delta = _pad_rows(per_seed(lambda g: mech.sample(g, (m, n), scale),
                                 generators), part.m_pad - m, 1)
     return [delta[:, d * part.block:(d + 1) * part.block].to(dev)
             for d, dev in enumerate(devices)]
@@ -433,21 +440,6 @@ def _sharded_mixer(part: NodePartition, delay: int, schedule, graph,
         return FaultyShardedSparseMixer(part, graph, schedule, delay=delay,
                                         devices=devices)
     return ShardedSparseMixer(part, delay=delay, devices=devices)
-
-
-def _unpack(engine: str, state):
-    """(theta, history) Blocks of a sharded engine state."""
-    if engine == "sim":
-        return state.theta, state.history
-    return state.theta["w"], (None if state.history is None
-                              else state.history["w"])
-
-
-def _pack(engine: str, state, theta, hist):
-    if engine != "sim":
-        theta = {"w": theta}
-        hist = None if hist is None else {"w": hist}
-    return state._replace(theta=theta, t=state.t + 1, history=hist)
 
 
 def _mix_seed(smixer, theta: Blocks, tilde: Blocks, hist, noise_self: bool,
@@ -463,10 +455,10 @@ def reference_local_round_fn(spec, engine: str, part: NodePartition,
                              delay: int, schedule=None, graph=None, *,
                              devices=None) -> Callable:
     """One gossip round over every shard of a mesh row, in torch ops — the
-    reference backend (`make_node_chunk_fn` dispatches here, or to the cuda
-    backend's variant, via ``spec.resolve_backend()``).
+    reference backend's (`make_node_chunk_fn` builds it, or
+    `cuda_local_round_fn`, through ``spec.resolve_backend()``).
 
-    The round takes a `runner.BatchState` whose theta (and history ring)
+    The round takes a `program.BatchState` whose theta (and history ring)
     are `Blocks` of (S, block, n) — S seeds in step — and (x, y, x_global):
     Blocks of (S, block, n) and (S, block), and the round's unsplit (S, m,
     n) features on the row's first device; it returns the next state and a
@@ -494,7 +486,7 @@ def reference_local_round_fn(spec, engine: str, part: NodePartition,
 
     def round_fn(state, batch):
         xb, yb, _ = batch
-        theta, hist = _unpack(engine, state)
+        theta, hist = unpack(engine, state)
         t = state.t
         ctx = omd.step_context(t + 1)
         alive = _alive_blocks(schedule, t, part, devices)
@@ -540,7 +532,90 @@ def reference_local_round_fn(spec, engine: str, part: NodePartition,
                           w_bar_loss=torch.stack(wb_losses),
                           sparsity=torch.stack(sparsities),
                           correct=Blocks.stack(corrects))
-        return _pack(engine, state, Blocks.stack(nxt), hist), out
+        return pack(engine, state, Blocks.stack(nxt), hist), out
+
+    return round_fn
+
+
+def cuda_local_round_fn(spec, engine: str, part: NodePartition, delay: int,
+                        schedule=None, graph=None, *,
+                        devices=None) -> Callable:
+    """The cuda backend's round over every shard of a mesh row (state and
+    outputs as `reference_local_round_fn`'s), S seeds in step: per shard
+    one ``round_stats`` launch on its (S, block, n) rows (w_bar over the
+    global m) and one ``dual_step`` after the sharded mix, the per-node
+    algebra (`program.hinge_coeff`) as torch ops with each seed's
+    reductions in a one-seed run's order, the clip's norms from the
+    round's unsplit features on the row's first device (as the unsharded
+    round sums them); the noise is drawn once a round per seed, as (m, n),
+    zero-padded and sliced."""
+    from repro_torch.api.clippers import per_node_norms
+    from repro_torch.core.algorithm1 import RoundOutput
+    from repro_torch.core.prox import zero_fraction
+    from repro_torch.kernels import round_fused as rf
+
+    mech, omd, prox_l1, clip_norm = fused_stages(spec)
+    m, n = part.m, spec.dim
+    devices = tuple(torch.device(d) for d in devices)
+    dev0 = devices[0]
+    smixer = _sharded_mixer(part, delay, schedule, graph, devices)
+    masks = _masks(part, devices)
+    imasks = [mk.to(torch.int32) for mk in masks]
+    ones = [torch.ones(part.block, dtype=torch.float32, device=dev)
+            for dev in devices]
+
+    def shard_stats(theta, x, y, norms, ctx):
+        dot, _, nnz, _, wsum = rf.round_stats(theta, x, ctx.lam_t, m,
+                                              prox_l1=prox_l1)
+        coeff, loss, correct = hinge_coeff(dot, y, clip_norm, lambda: norms)
+        return coeff, loss, correct, wsum, nnz
+
+    def round_fn(state, batch):
+        # Blocks of (S, block, n) and (S, block); the unsplit (S, m, n)
+        xb, yb, x_global = batch
+        theta, hist = unpack(engine, state)
+        t, S = state.t, len(state.generators)
+        ctx = omd.step_context(t + 1)
+        # ||x|| of every node from the unsplit features, as the
+        # unsharded round sums it: a card's row sum takes another
+        # order at another row count, and an ulp moves theta
+        norms = _pad_rows(per_seed(per_node_norms, x_global),
+                          part.m_pad - m, 1)
+        stats = [shard_stats(th, x, y, norms[:, d * part.block:
+                                             (d + 1) * part.block]
+                             .to(x.device), ctx)
+                 for d, (th, x, y) in enumerate(zip(
+                     theta.parts, xb.parts, yb.parts))]
+        coeff, loss, correct, wsum, nnz = zip(*stats)
+        # the metrics: per-shard partials, added in shard order
+        w_bar = _psum(wsum, dev0) / m                      # (S, n)
+        wb_loss = _psum([per_seed(torch.sum, torch.clamp_min(
+            1.0 - y * per_seed(lambda a: torch.sum(a, dim=-1),
+                               w_bar.to(x.device)[:, None, :] * x),
+            0.0) * mk) for x, y, mk in zip(xb.parts, yb.parts, masks)],
+            dev0) / m
+        zeros = _psum([((n - nz) * mk).sum(dim=1)
+                       for nz, mk in zip(nnz, imasks)], dev0)
+        sparsity = zero_fraction(zeros, m * n)
+
+        deltas = _noise_blocks(mech, state.generators, m, n,
+                               mech.scale(ctx.alpha_t, n), part, devices)
+        tilde = theta + Blocks(deltas)
+        mixed = Blocks.stack([
+            _mix_seed(smixer, theta[i], tilde[i],
+                      None if hist is None else hist[i],
+                      mech.noise_self, t) for i in range(S)])
+        alive = _alive_blocks(schedule, t, part, devices) or ones
+        nxt = Blocks(
+            rf.dual_step(seed_rows(md.contiguous()), seed_rows(x),
+                         seed_rows(th), c.reshape(-1),
+                         a.expand(S, -1).reshape(-1),
+                         ctx.alpha_t).view(th.shape)
+            for md, x, th, c, a in zip(mixed.parts, xb.parts,
+                                       theta.parts, coeff, alive))
+        out = RoundOutput(loss=Blocks(loss), w_bar_loss=wb_loss,
+                          sparsity=sparsity, correct=Blocks(correct))
+        return pack(engine, state, nxt, hist), out
 
     return round_fn
 
@@ -609,16 +684,11 @@ def make_node_chunk_fn(spec, engine: str, mesh,
     split over the mesh's "node" axis and the round loop live inside, so
     `run`'s checkpoint, resume and metrics logic — and checkpoints across
     device counts — need no changes. With ``batched=True`` the state is a
-    `runner.BatchState` of S seeds (xs (C, S, m, n)), the mesh a ("seed",
+    `program.BatchState` of S seeds (xs (C, S, m, n)), the mesh a ("seed",
     "node") grid: each seed row of the grid runs its share of the seeds
     (padded to a multiple of the rows) on its node shards, and init_fn
     takes a list of seeds.
     """
-    from repro_torch.api.runner import (batch_init, reference_round_program,
-                                        seed_rows_program, seed_state,
-                                        stack_states)
-    from repro_torch.core.algorithm1 import RoundOutput
-
     if engine not in ("sim", "dist"):
         raise ValueError(f"unknown engine {engine!r}; expected 'sim' or 'dist'")
     if "node" not in getattr(mesh, "axis_names", ()):
@@ -651,26 +721,16 @@ def make_node_chunk_fn(spec, engine: str, mesh,
         raise ValueError(f"graph has m={graph.m} nodes but RunSpec.nodes="
                          f"{spec.nodes}")
     part = partition_graph(graph, D, order=mix_order(mixer))
-    backend = spec.resolve_backend()
     rows = mesh.rows("node") if batched else mesh.rows("node")[:1]
+    # the state a plain run initializes: global and unpadded, so
+    # checkpoints interchange across backends and device counts
+    dev0 = rows[0][0]
+    init_fn = reference_round_program(spec, engine, dev0)[1]
+    backend = spec.resolve_backend()
     programs = [_row_program(backend.make_local_round_fn(
         spec, engine, part, delay, schedule=schedule, graph=graph,
         devices=row), part, engine, row) for row in rows]
-
-    # init states are built by the UNSHARDED reference program: global,
-    # unpadded — the same state a plain run initializes, so checkpoints
-    # interchange across backends and device counts
-    dev0 = rows[0][0]
-    init_fn = reference_round_program(spec, engine, dev0)[1]
     if batched:
         return (seed_rows_program(programs, [row[0] for row in rows], dev0),
                 batch_init(init_fn))
-    program = programs[0]
-
-    def chunk_fn(state, xs, ys):
-        bstate, outs = program(stack_states([state]), xs[:, None],
-                               ys[:, None])
-        return seed_state(engine, bstate, 0), RoundOutput(
-            *(f[:, 0] for f in outs))
-
-    return chunk_fn, init_fn
+    return one_seed(programs[0], engine), init_fn

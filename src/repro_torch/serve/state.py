@@ -151,8 +151,9 @@ class ServeState:
     def publish_initial(self) -> Snapshot:
         """Publish the round-0 model (w = 0, eps 0) so the service answers
         from the first request, before the trainer's first chunk lands."""
-        from repro_torch.api.runner import make_chunk_program
-        _, init_fn = make_chunk_program(self.spec, self.engine, self.device)
+        from repro_torch.api.program import reference_round_program
+        init_fn = reference_round_program(self.spec, self.engine,
+                                          self.device)[1]
         snap = snapshot_from_state(self.spec, self.engine,
                                    init_fn(self.spec.seed), version=0,
                                    eps_spent=0.0)

@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.api import ExecConfig, RunSpec, run, run_batch
 from repro_torch.api import round_graph as rg
-from repro_torch.api.backends import CudaBackend
+from repro_torch.api.runner import make_batch_chunk_program, make_chunk_program
 from repro_torch.kernels import round_fused as rf
 import repro_torch.obs as obs
 
@@ -120,15 +120,12 @@ def test_a_mechanism_scales_every_round_or_none(kw):
 ])
 def test_which_runs_replay_a_captured_round(kw, graphed, monkeypatch):
     s = spec(**kw)
-    backend = s.resolve_backend()
     cpu = torch.device("cpu")
-    for build in (backend.make_chunk_program,
-                  backend.make_batch_chunk_program):
+    for build in (make_chunk_program, make_batch_chunk_program):
         assert build(s, "sim", cpu)[0].graphs == ()
     # a CUDA device as the backend sees it
     monkeypatch.setattr(rg, "_card", lambda device: True)
-    for build in (backend.make_chunk_program,
-                  backend.make_batch_chunk_program):
+    for build in (make_chunk_program, make_batch_chunk_program):
         assert bool(build(s, "sim", cpu)[0].graphs) is graphed
 
 
@@ -206,12 +203,11 @@ def test_a_chunk_outside_the_plan_runs_eagerly(pretend_card):
     once planned, the chunks inside the plan replay and the rest do not."""
     s = spec()
     dev = torch.device("cpu")
-    backend = CudaBackend()
-    graphed, init = backend.make_batch_chunk_program(s, "sim", dev)
+    graphed, init = make_batch_chunk_program(s, "sim", dev)
     graph, = graphed.graphs
     rg._card, card = (lambda device: False), rg._card
     try:
-        eager = backend.make_batch_chunk_program(s, "sim", dev)[0]
+        eager = make_batch_chunk_program(s, "sim", dev)[0]
     finally:
         rg._card = card
     assert eager.graphs == ()

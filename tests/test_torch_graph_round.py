@@ -1,8 +1,8 @@
 """The graphed ring round on the card, held bit for bit to the eager loop.
 
 A run whose round replays from a CUDA graph (`repro_torch.api.round_graph`)
-must equal the eager loop (``runner.chunk_loop`` over
-``CudaBackend()._make_round_fn``) on the same spec and seed in every output
+must equal the eager loop (``program.chunk_loop`` over the round of
+``CudaBackend().make_round_program``) on the same spec and seed in every output
 — final_w, loss, w_bar_loss, correct, sparsity, the eps ledger — and leave
 each seed's generator in the same state. Cases: the paper's shape (64
 nodes, n = 10,000, the ring) over 300 rounds in chunks of 256, so the
@@ -24,7 +24,8 @@ import torch
 from repro_torch.api import ExecConfig, RunSpec, run, run_batch
 from repro_torch.api import round_graph as rg
 from repro_torch.api.backends import CudaBackend
-from repro_torch.api.runner import chunk_loop
+from repro_torch.api.program import chunk_loop
+from repro_torch.api.runner import make_batch_chunk_program, make_chunk_program
 from repro_torch.kernels import round_fused as rf
 import repro_torch.obs as obs
 
@@ -46,7 +47,7 @@ def card():
 @pytest.fixture
 def eager(monkeypatch):
     """A context in which the cuda backend builds no graph: the eager
-    loop, `chunk_loop` over its `_make_round_fn`."""
+    loop, `chunk_loop` over its round."""
     def off():
         monkeypatch.setattr(rg, "_card", lambda device: False)
     return off
@@ -121,9 +122,8 @@ def test_eps_inf_graphed_equals_eager(card, eager):
 
 def test_batch_of_three_graphed_equals_eager_chunk_loop(card):
     s = paper()
-    backend = CudaBackend()
-    graphed, init = backend.make_batch_chunk_program(s, "sim", card)
-    loop = chunk_loop(backend._make_round_fn(s, "sim", card))
+    graphed, init = make_batch_chunk_program(s, "sim", card)
+    loop = chunk_loop(CudaBackend().make_round_program(s, "sim", card)[0])
     assert graphed.graphs and not loop.graphs
     stream = s.resolve_stream(device=card)
     a, b = init([1, 2, 3]), init([1, 2, 3])
@@ -153,7 +153,7 @@ def test_run_batch_of_three_graphed_equals_eager(card, eager):
 
 def test_complete_on_the_dense_a_graphed_equals_eager(card, eager):
     s = paper(mixer="dense", mixer_options={"topology": "complete"})
-    assert CudaBackend().make_chunk_program(s, "sim", card)[0].graphs
+    assert make_chunk_program(s, "sim", card)[0].graphs
     rf.reset_launches()
     got = run(s, exec=CFG, device=card)
     assert rf.round_update.launches == T
