@@ -284,6 +284,24 @@ Phases (any failure raises, and the script exits non-zero):
                version (the stages' own ops). The kernels line's ``launches`` are 21b's eps-1 steps
                (one a leaf a step, required there), ``check_launches``
                this phase's.
+24. unembedding — the tied unembedding's three products
+               (``kernels.unembed_gemm``: the logits, dx and dtable, bf16
+               tensor-core passes with the f32 logit gradient split into
+               three exact bf16 terms) at the LM cells' shapes (M 4,096,
+               AdamW's step, and 1,024, a gossip node's; d 2,304, V
+               122,880): each within twice the error of torch's f32
+               product against a float64 one, then timed by CUDA events
+               beside its bound (bf16 MMA at 989 TFLOP/s), the f32 work's
+               bound at 67 TFLOP/s, its plain version and torch's f32
+               ``mm`` (``library_ms``). At the same shapes, a gradient
+               whose pairs of entries cancel down to the split's low
+               terms (meeting equal rows of the other operand): dx and
+               dtable within twice torch's f32 error, and the kernel fed
+               g's high terms alone (g cast to bf16, the lower precision)
+               outside it. Phase 21b requires every node's unembedding of
+               every gossip step, and of every AdamW step, on the kernel
+               path (``unembed.kernel_calls``, no ``unembed.plain_calls``)
+               and counts its launches, four a forward and backward.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line (time,
 bound, plain-version time and launches of every kernel), and last
@@ -323,6 +341,8 @@ ROUND_KERNELS = ("round_stats", "round_update", "dual_step")
 REPLACES = {
     "gossip_update": "none (GossipDP.update's eager chain, "
                      "src/repro_torch/core/gossip.py)",
+    "unembed_gemm": "none (the tied unembedding's f32 products and their "
+                    "autograd backward, src/repro_torch/models/layers.py)",
     "round_stats": "src/repro/kernels/round_fused.py:130",
     "round_update": "src/repro/kernels/round_fused.py:194",
     "round_update_dense": "src/repro/kernels/round_fused.py:194",
@@ -333,6 +353,7 @@ REPLACES = {
     "hinge_grad": "src/repro/kernels/hinge_grad.py:57",
 }
 SEED_SOURCES = {"gossip_update": "src/repro_torch/csrc/gossip_update.cu",
+                "unembed_gemm": "src/repro_torch/csrc/unembed_gemm.cu",
                 "pdomd_update": "src/repro_torch/csrc/pdomd_update.cu",
                 "hinge_grad": "src/repro_torch/csrc/hinge_grad.cu"}
 PAPER_T = 100_000 // MAIN_M                  # 1,562 rounds
@@ -392,8 +413,9 @@ def build_phase() -> float:
                  if "registers" in ln or "spill" in ln]
         log(f"built {lib.name}: " + " | ".join(ln.strip() for ln in ptxas))
     from repro_torch.kernels import (gossip_update, hinge_grad,
-                                     pdomd_update, round_fused)
-    for module in (round_fused, pdomd_update, hinge_grad, gossip_update):
+                                     pdomd_update, round_fused, unembed_gemm)
+    for module in (round_fused, pdomd_update, hinge_grad, gossip_update,
+                   unembed_gemm):
         module.library()
     log(f"build: {secs:.1f} s")
     return secs
@@ -3497,6 +3519,20 @@ def lm_minicpm_phase(card: str) -> dict:
             "expandable_segments:False")
 
 
+def _unembed_calls(tel, ug, calls: int, what: str) -> int:
+    """Require ``calls`` tied unembeddings on the kernel path
+    (``unembed.kernel_calls``) and four `unembed_gemm` launches each (the
+    logits, dx's product and its sum, dtable) since the last
+    ``ug.reset_launches()``; return the launches."""
+    snap = tel.metrics.snapshot()
+    got = (snap.get("unembed.kernel_calls", 0),
+           snap.get("unembed.plain_calls", 0), ug.unembed_gemm.launches)
+    require(got == (calls, 0, 4 * calls),
+            f"lm {MINICPM} {what}: (kernel path, plain path, launches) "
+            f"{got}, want {(calls, 0, 4 * calls)}")
+    return got[2]
+
+
 def _lm_minicpm_phase(card: str) -> dict:
     import dataclasses
     import warnings
@@ -3506,6 +3542,7 @@ def _lm_minicpm_phase(card: str) -> dict:
     from repro_torch.data import lm_batches
     from repro_torch.device import synchronize
     from repro_torch.kernels import gossip_update as gu
+    from repro_torch.kernels import unembed_gemm as ug
     from repro_torch.launch import steps as steps_lib
     from repro_torch.models import build_model
     dev = torch.device(DEVICE)
@@ -3539,6 +3576,7 @@ def _lm_minicpm_phase(card: str) -> dict:
                 warnings.simplefilter("always")
                 state, _ = step_fn(state, next(batches))   # warm-up
                 gu.reset_launches()
+                ug.reset_launches()
                 tel = obs.enable()
                 res, times = _timed_run(recipe.to_runspec(MINICPM_NODES),
                                         "gossip", step_fn, state, batches,
@@ -3551,6 +3589,8 @@ def _lm_minicpm_phase(card: str) -> dict:
         leaves = MINICPM_STEPS * len(tree.leaves(state.gossip.theta))
         counts = {k: v for k, v in tel.metrics.snapshot().items()
                   if k.startswith("gossip.")}
+        unembed = _unembed_calls(tel, ug, MINICPM_STEPS * MINICPM_NODES,
+                                 f"gossip eps={eps}")
         launches = gu.gossip_update.launches
         want = ({"gossip.eager_leaves": leaves}, 0) if same else (
             {"gossip.fused_leaves": leaves}, leaves)
@@ -3569,7 +3609,8 @@ def _lm_minicpm_phase(card: str) -> dict:
                "peak_gb": peak, "theta_gb": theta_gb,
                "noise_scale": hist[0]["noise_scale"],
                "sparsity": [h["theta_sparsity"] for h in hist],
-               "update_leaves": counts, "launches": launches}
+               "update_leaves": counts, "launches": launches,
+               "unembed_launches": unembed}
         require(all(math.isfinite(v) for v in row["losses"]),
                 f"lm {MINICPM} gossip eps={eps}: loss not finite")
         require((row["noise_scale"] > 0) == (eps != math.inf) and
@@ -3635,7 +3676,14 @@ def _lm_minicpm_phase(card: str) -> dict:
 
     batches = flat_batches()
     state, _ = step_fn(state, next(batches))               # warm-up
-    res, times = _timed_run(None, "allreduce", step_fn, state, batches, dev)
+    ug.reset_launches()
+    tel = obs.enable()
+    try:
+        res, times = _timed_run(None, "allreduce", step_fn, state, batches,
+                                dev)
+    finally:
+        obs.disable()
+    unembed = _unembed_calls(tel, ug, MINICPM_STEPS, "all-reduce")
     del state
     peak = torch.cuda.max_memory_allocated() / 1e9
     losses = [h["loss"] for h in res.history]
@@ -3644,13 +3692,13 @@ def _lm_minicpm_phase(card: str) -> dict:
         f"{MINICPM_NODES * MINICPM_B} T={MINICPM_T}: losses "
         f"{[round(v, 4) for v in losses]}; step median {step_ms:.1f} ms "
         f"{[round(t * 1e3, 1) for t in times]} = "
-        f"{tokens / statistics.median(times):.0f} tokens/s; peak memory "
-        f"{peak:.2f} GB | {card}")
+        f"{tokens / statistics.median(times):.0f} tokens/s; {unembed} "
+        f"unembed_gemm launches; peak memory {peak:.2f} GB | {card}")
     require(all(math.isfinite(v) for v in losses),
             f"lm {MINICPM} all-reduce: loss not finite")
     out["allreduce"] = {"losses": losses, "step_ms": step_ms,
                         "tokens_per_s": tokens / statistics.median(times),
-                        "peak_gb": peak}
+                        "peak_gb": peak, "unembed_launches": unembed}
     del res, model
     torch.cuda.empty_cache()
     return out
@@ -4171,6 +4219,169 @@ def gossip_update_phase(card: str) -> dict:
     return entry
 
 
+# -- 24. the tied unembedding's products ---------------------------------------
+
+BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores (data sheet)
+UNEMBED_D, UNEMBED_V = 2_304, 122_880      # minicpm-2b: d, padded vocab
+# the LM cells' rows a product: AdamW's 8 x 512, a gossip node's 2 x 512
+UNEMBED_M = {"allreduce_adamw": 4_096, "gossip_node": 1_024}
+
+
+def _unembed_operands(M: int, dev, seed: int):
+    """x (M, d) and table (V, d) bf16, g (M, V) a cross-entropy logit
+    gradient, (softmax - onehot) / M, in f32."""
+    import torch
+    g0 = torch.Generator(device=dev)
+    g0.manual_seed(seed)
+    d, V = UNEMBED_D, UNEMBED_V
+    x = torch.randn(M, d, generator=g0, device=dev).to(torch.bfloat16)
+    table = (torch.randn(V, d, generator=g0, device=dev)
+             / math.sqrt(d)).to(torch.bfloat16)
+    g = torch.softmax(2.0 * torch.randn(M, V, generator=g0, device=dev),
+                      dim=-1)
+    labels = torch.randint(0, V, (M,), generator=g0, device=dev)
+    g[torch.arange(M, device=dev), labels] -= 1.0
+    return x, table, g.div_(M)
+
+
+def _cancelling_operands(M: int, dev, seed: int):
+    """x (M, d) and table (V, d) bf16 whose rows come in equal pairs, and
+    two f32 gradients (M, V) whose entries come in pairs (1 + r, -1), r ~
+    2^-12: ``g_x``'s along V (meeting table's equal rows: dx), ``g_t``'s
+    along M (meeting x's: dtable). Each pair's high terms cancel exactly,
+    so the products are the low terms'."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    d, V = UNEMBED_D, UNEMBED_V
+
+    def pairs(rows, cols):
+        rem = 2.0 ** -12 * torch.randn(rows, cols, generator=gen,
+                                       device=dev)
+        return torch.stack([1.0 + rem, -torch.ones_like(rem)],
+                           dim=-1).reshape(rows, 2 * cols)
+
+    x = torch.randn(M // 2, d, generator=gen, device=dev).to(
+        torch.bfloat16).repeat_interleave(2, dim=0)
+    table = (torch.randn(V // 2, d, generator=gen, device=dev)
+             / math.sqrt(d)).to(torch.bfloat16).repeat_interleave(2, dim=0)
+    return x, table, pairs(M, V // 2), pairs(V, M // 2).T.contiguous()
+
+
+def _normwise(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+def unembed_gemm_phase(card: str) -> dict:
+    """Phase 24: the tied unembedding's three products
+    (`kernels.unembed_gemm`) at the LM cells' shapes: each held to a
+    float64 product (its error no more than twice that of torch's f32
+    product of the same operands, rounded as autograd rounds it), then
+    timed by CUDA events over queued calls beside its bound (its bf16 MMA
+    at 989 TFLOP/s or its bytes at 3.35 TB/s, the larger), the f32 work's
+    bound at 67 TFLOP/s, its plain version (the f32 product and the cast
+    that autograd runs) and ``library_ms`` (torch's f32 ``mm`` alone, which
+    the port no longer calls there). Then dx and dtable of a cancelling
+    gradient (`_cancelling_operands`): the same hold, which the kernel fed
+    g's high terms alone (g cast to bf16) must fail. Returns the kernels
+    line's entry."""
+    import torch
+    from repro_torch.kernels import unembed_gemm as ug
+    from repro_torch.kernels.work import work
+    dev = torch.device(DEVICE)
+    bf16 = torch.bfloat16
+    d, V = UNEMBED_D, UNEMBED_V
+    entry = dict(name="unembed_gemm", route="cuda",
+                 source=SEED_SOURCES["unembed_gemm"],
+                 replaces=REPLACES["unembed_gemm"], shapes={})
+    for cell, M in UNEMBED_M.items():
+        x, table, g = _unembed_operands(M, dev, seed=M)
+        xf, tf = x.float(), table.float()
+        calls = {
+            "logits": ((M, V, d), lambda: ug.logits(x, table),
+                       lambda: ug.logits_plain(x, table),
+                       lambda: torch.mm(xf, tf.t()),
+                       lambda: x.double() @ table.double().t()),
+            "grad_x": ((M, d, V), lambda: ug.grad_x(g, table),
+                       lambda: ug.grad_x_plain(g, table).to(bf16),
+                       lambda: torch.mm(g, tf),
+                       lambda: g.double() @ table.double()),
+            "grad_table": ((V, d, M), lambda: ug.grad_table(g, x),
+                           lambda: ug.grad_table_plain(g, x).to(bf16),
+                           lambda: torch.mm(g.t(), xf),
+                           lambda: g.double().t() @ x.double())}
+        rows = {}
+        for op, ((m, n, k), kern, plain, lib, exact) in calls.items():
+            want = exact()
+            err = _normwise(kern(), want)
+            err_lib = _normwise(plain(), want)
+            del want
+            require(err <= 2 * err_lib,
+                    f"unembed_gemm {op} at M={M}: error {err:.3g} over "
+                    f"twice torch's f32 product's {err_lib:.3g}")
+            torch.cuda.empty_cache()
+            ms = _queued_ms(kern, reps=5, repeats=3)
+            plain_ms = _queued_ms(plain, reps=2, repeats=3)
+            library_ms = _queued_ms(lib, reps=2, repeats=3)
+            nbytes, flops = work(ug.OPS[op], m, n, k=k)
+            t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+            f32_flops = 2 * m * n * k
+            rows[op] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bf16_tflop=flops / 1e12, f32_tflop=f32_flops / 1e12,
+                f32_bound_ms=f32_flops / FP32_FLOPS * 1e3,
+                err=err, torch_f32_err=err_lib)
+            log(f"kernel unembed_gemm {op} ({cell}: {m}x{n}, depth {k}): "
+                f"{ms:.3f} ms by CUDA events (median) | {flops / 1e12:.3f} "
+                f"TFLOP of bf16 MMA, bound {rows[op]['bound_ms']:.3f} ms at "
+                f"989 TFLOP/s ({rows[op]['bound_by']}), "
+                f"{100 * rows[op]['bound_ms'] / ms:.1f} % of it | the f32 "
+                f"work {f32_flops / 1e12:.3f} TFLOP, "
+                f"{rows[op]['f32_bound_ms']:.3f} ms at 67 TFLOP/s | plain "
+                f"version {plain_ms:.3f} ms | library_ms (torch f32 mm) "
+                f"{library_ms:.3f} ms | error {err:.3g} (torch f32 "
+                f"{err_lib:.3g}) | {card}")
+        total = {key: sum(r[key] for r in rows.values())
+                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        del x, table, g, xf, tf, calls
+        torch.cuda.empty_cache()
+        x, table, g_x, g_t = _cancelling_operands(M, dev, seed=M + 1)
+        for op, kern, g_, b in (("grad_x", ug.grad_x, g_x, table),
+                                ("grad_table", ug.grad_table, g_t, x)):
+            want = (g_.double() @ b.double() if op == "grad_x"
+                    else g_.double().t() @ b.double())
+            err = _normwise(kern(g_, b), want)
+            err_lib = _normwise(getattr(ug, op + "_plain")(g_, b).to(bf16),
+                                want)
+            err_hi = _normwise(kern(g_.to(bf16).float(), b), want)
+            del want
+            log(f"kernel unembed_gemm {op} ({cell}, M={M}), a gradient "
+                f"cancelling to its low terms: error {err:.3g}, torch f32 "
+                f"{err_lib:.3g}, g's high terms alone {err_hi:.3g} | {card}")
+            require(err <= 2 * err_lib < err_hi,
+                    f"unembed_gemm {op} at M={M}, cancelling gradient: "
+                    f"error {err:.3g}, g's high terms alone {err_hi:.3g}, "
+                    f"twice torch's f32 product's {2 * err_lib:.3g}: the "
+                    f"hold must pass the kernel and fail the high terms")
+            rows[op].update(cancel_err=err, cancel_torch_f32_err=err_lib,
+                            cancel_high_terms_err=err_hi)
+        del x, table, g_x, g_t
+        log(f"unembed_gemm ({cell}, M={M}): the three products "
+            f"{total['ms']:.3f} ms, bound {total['bound_ms']:.3f} ms | "
+            f"plain {total['plain_ms']:.3f} ms | torch f32 mm "
+            f"{total['library_ms']:.3f} ms | {card}")
+        entry["shapes"][cell] = dict(rows, total=total)
+        torch.cuda.empty_cache()
+    a = entry["shapes"]["allreduce_adamw"]["total"]
+    entry.update(ms=a["ms"], plain_ms=a["plain_ms"],
+                 library_ms=a["library_ms"], bound_ms=a["bound_ms"],
+                 bound_by="operations")
+    return entry
+
+
 PATHS = {"round_stats": "main, serve", "round_update": "main, serve",
          "dual_step": "hybrid (phase 6, complete, time_varying, faults)",
          "pdomd_update": "ops", "hinge_grad": "ops"}
@@ -4206,7 +4417,8 @@ def main() -> int:
     figures = figures_phase(sweep13, card)
     ablations = ablations_phase(card)
     lm_phase(card)
-    lm_gossip = lm_train_serve_phase(card)["minicpm"]["gossip_eps_1.0"]
+    lm_minicpm = lm_train_serve_phase(card)["minicpm"]
+    lm_gossip = lm_minicpm["gossip_eps_1.0"]
     lm_dryrun_phase(card, smi)
     gossip_entry = gossip_update_phase(card)
     gossip_entry["launches"] = lm_gossip["launches"]
@@ -4256,6 +4468,15 @@ def main() -> int:
         entry["path"] = f"node-sharded, {entry['shards']} shards (phase 17)"
         kernels[name] = entry
     kernels["gossip_update"] = gossip_entry
+    unembed_entry = unembed_gemm_phase(card)
+    unembed_entry["launches"] = lm_gossip["unembed_launches"]
+    unembed_entry["allreduce_launches"] = lm_minicpm["allreduce"][
+        "unembed_launches"]
+    unembed_entry["path"] = (f"tied unembedding of the LM steps (phase "
+                             f"21b: {MINICPM_STEPS} gossip steps at eps 1 "
+                             f"x {MINICPM_NODES} nodes, and "
+                             f"{MINICPM_STEPS} all-reduce AdamW steps)")
+    kernels["unembed_gemm"] = unembed_entry
     log("topologies (rounds/s, accuracy, regret[-1]): " + json.dumps(
         {name: [run["rounds_per_sec"], run["accuracy"], run["regret_last"]]
          for name, run in topologies.items()}))

@@ -33,7 +33,7 @@ __all__ = ["work", "scope", "counting", "active"]
 
 
 def work(name: str, m: int, n: int, nnz: int | None = None,
-         seeds: int = 1, grad_bytes: int = 4) -> tuple[int, int]:
+         seeds: int = 1, grad_bytes: int = 4, k: int = 0) -> tuple[int, int]:
     """(bytes, flops) of one launch at the main path's flags: each input
     read once, each output written once. For ``round_update`` the mix is
     the dense (m, m) A (m^2 floats in, 2 m^2 n flops) unless ``nnz`` is
@@ -43,7 +43,9 @@ def work(name: str, m: int, n: int, nnz: int | None = None,
     (the seeds share them). ``pdomd_update`` takes (rows, 128) as (m, n),
     ``hinge_grad`` (B, n), ``dual_step`` its (m, n) rows, ``gossip_update``
     a leaf's m nodes of n coordinates, its gradient ``grad_bytes`` an
-    element."""
+    element. The tied unembedding's products (``unembed_gemm``) take their
+    (m, n) output and depth ``k``: x (M, d) and table (V, d) bf16, g (M, V)
+    f32; the flops are the bf16 MMA they run, three passes a gradient."""
     mn, S = m * n, seeds
     if name == "round_stats":      # theta, x in; dot, xsq, nnz, wbdot, wsum
         return S * 4 * (2 * mn + 4 * m + n), S * 12 * mn
@@ -60,6 +62,12 @@ def work(name: str, m: int, n: int, nnz: int | None = None,
         return 4 * (3 * mn + 2 * m + mn), 3 * mn
     if name == "gossip_update":    # theta, u, grad, factor in; next, zeros
         return (12 + grad_bytes) * mn + 4 * m + 8, 25 * mn
+    if name == "unembed_logits":      # (M, V) out: x, table in; logits out
+        return 2 * (m + n) * k + 4 * mn, 2 * mn * k
+    if name == "unembed_grad_x":      # (M, d) out: g, table in; dx out
+        return 4 * m * k + 2 * k * n + 2 * mn, 6 * mn * k
+    if name == "unembed_grad_table":  # (V, d) out: g, x in; dtable out
+        return 4 * k * m + 2 * k * n + 2 * mn, 6 * mn * k
     raise ValueError(f"no work count for kernel {name!r}")
 
 

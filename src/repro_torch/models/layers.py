@@ -14,6 +14,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import unembed_gemm
+from repro_torch.obs import active
+
 __all__ = ["linear_init", "linear", "embed_init", "embed", "unembed",
            "norm_init", "apply_norm", "rms_head_norm", "activation",
            "mask_padded_vocab", "softmax_cross_entropy", "matmul"]
@@ -60,9 +63,30 @@ def embed(p: dict, ids: torch.Tensor) -> torch.Tensor:
     return p["table"][ids.long()]
 
 
+def kernel_path(x: torch.Tensor, table: torch.Tensor) -> bool:
+    """Whether `unembed` takes `unembed_gemm.TiedUnembed`: bf16 x and
+    table (a bf16 product is exact in f32, so the kernels' bf16 passes
+    compute the f32 product), rows of 16 bytes and a vocabulary of whole
+    16-byte logit groups. The wrapper launches the kernels on a CUDA
+    device and runs their plain versions on CPU and meta tensors."""
+    return (x.dtype == table.dtype == torch.bfloat16
+            and x.shape[-1] % 8 == 0 and table.shape[0] % 4 == 0)
+
+
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Tied unembedding (logits in f32 for a stable softmax/CE)."""
-    return x.to(torch.float32) @ p["table"].to(torch.float32).T
+    """Tied unembedding (logits in f32 for a stable softmax/CE): ``x.to(f32)
+    @ table.to(f32).T``, through `unembed_gemm.TiedUnembed` where
+    `kernel_path` holds. Counters ``unembed.kernel_calls`` and
+    ``unembed.plain_calls`` say which path each call took."""
+    table = p["table"]
+    kernel = kernel_path(x, table)
+    tel = active()
+    if tel.enabled:
+        tel.metrics.counter("unembed.kernel_calls" if kernel
+                            else "unembed.plain_calls").inc()
+    if kernel:
+        return unembed_gemm.TiedUnembed.apply(x, table)
+    return x.to(torch.float32) @ table.to(torch.float32).T
 
 
 # ---------------------------------------------------------------------------

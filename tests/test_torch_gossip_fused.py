@@ -295,8 +295,11 @@ def test_the_gossip_lm_step_fuses_every_leaf_bit_for_bit():
     eager, es = _lm_steps("cpu", eager_twin(gdp))
     fused, fs = _lm_steps("cpu", gdp)
     leaves = len(gossip.tree.leaves(fused.gossip.theta))
-    assert es == {"gossip.eager_leaves": 2 * leaves}
-    assert fs == {"gossip.fused_leaves": 2 * leaves}
+    # the tied unembedding, once a node a step: on the CPU its plain path
+    assert es == {"gossip.eager_leaves": 2 * leaves,
+                  "unembed.plain_calls": 2 * 4}
+    assert fs == {"gossip.fused_leaves": 2 * leaves,
+                  "unembed.plain_calls": 2 * 4}
     for a, b in zip(gossip.tree.leaves(eager.gossip.theta),
                     gossip.tree.leaves(fused.gossip.theta)):
         assert torch.equal(a, b)
@@ -374,7 +377,10 @@ def test_the_gossip_lm_step_fuses_every_leaf_on_the_card(card):
     before = gu.gossip_update.launches
     state, snap = _lm_steps(card, _lm_recipe_gdp())
     leaves = len(gossip.tree.leaves(state.gossip.theta))
-    assert snap == {"gossip.fused_leaves": 2 * leaves}
+    # the tied unembedding, once a node a step: the reduced model is f32,
+    # so its plain path
+    assert snap == {"gossip.fused_leaves": 2 * leaves,
+                    "unembed.plain_calls": 2 * 4}
     assert gu.gossip_update.launches - before == 2 * leaves
     assert all(bool(torch.isfinite(t).all())
                for t in gossip.tree.leaves(state.gossip.theta))
